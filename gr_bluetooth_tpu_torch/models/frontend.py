@@ -1,0 +1,425 @@
+"""Streaming wideband front end: blocks of IQ -> compact hit tables.
+
+The port of gr_bluetooth_tpu/models/frontend.py for even-integer-Msps
+captures.  Long IQ blocks flow through the device pipeline once, with a
+5-slot lookahead overlap so packets that start near the end of a block
+are fully decodable; the dense per-offset detection planes are reduced on
+the device to a fixed-size hit table (channel, offset, LAP, errors) plus
+per-hit symbol windows, so a block's host traffic is a few hundred KB.
+
+Per-block device work (_device_step):
+
+    pfb_snr      channelize (polyphase FIR + DFT + rotator) and per-tile
+                 on-energies                        [CUDA, ops/pfb_kernel]
+    demod_pack   discriminator, 16-phase timing, slicer, word pack, and
+                 the probe band-pass energies       [CUDA, ops/demod_kernel]
+    slot SNR     segment sums of the partials       [torch, ops/snr]
+    detect_words packed access-code detection       [CUDA, ops/detect_kernel]
+    squelch AND on word planes, first-k hit extraction, bit-aligned window
+    gather, LAP and error count from each window    [torch, below]
+
+Nothing on the step reads a value back to the host.  Hits within the
+first B slots are reported; the stream advances B slots.
+
+Odd-integer rates, off-grid rates and the LE detector are not ported yet
+(ROADMAP.md) and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT, SYMBOLS_PER_SLOT)
+from ..ops import demod_kernel, detect_kernel, pfb, pfb_kernel, snr
+from ..ops.detect_kernel import ac_errors, popcount, u32_to_i32
+from ..utils.device import resolve_device
+from ..utils.log import get_logger
+
+__all__ = ["FrontEnd", "Hit", "BlockResult"]
+
+log = get_logger("frontend")
+
+LOOKAHEAD_SLOTS = 5      # max packet length
+WIN_SYMBOLS = 3200       # per-hit symbol window (>= 3125)
+LE_WIN_SYMBOLS = 512     # per-LE-hit window (>= 376 + header margin)
+_M32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class Hit:
+    """One classic access-code candidate."""
+    channel: int          # BR channel number
+    chan_idx: int         # row in the channel bank
+    clkn: int             # native slot clock at packet start
+    sym_offset: int       # raw symbol offset within the block's bit stream
+    lap: int
+    errors: int
+    snr_db: float
+    win_row: int          # row in BlockResult.windows
+
+
+@dataclass
+class BlockResult:
+    slot_base: int              # clkn of the block's first slot
+    snr_db: np.ndarray          # (S, C) per-slot SNR
+    hits: list                  # list[Hit], ordered by offset
+    le_hits: list               # LE candidates: empty until LE is ported
+    windows: np.ndarray         # (K, WIN_SYMBOLS // 32 + 1) int32 windows
+    le_windows: np.ndarray      # (K_le, LE_WIN_SYMBOLS // 32 + 1) int32
+    n_slots: int                # slots advanced by this block
+
+
+class FrontEnd:
+    def __init__(self, sample_rate: float, center_freq: float,
+                 squelch_threshold: float = DEFAULT_SNR_DB,
+                 block_slots: int = 16, max_ac_errors: int = 6,
+                 use_squelch: bool = True, enable_le: bool = False,
+                 max_hits: int | None = None, device=None):
+        spsf = sample_rate / 1e6
+        if not (abs(spsf - round(spsf)) < 1e-9 and round(spsf) >= 2):
+            raise NotImplementedError(
+                f"{sample_rate / 1e6:g} Msps is off the 1 Msps grid: the "
+                "resampled front end is not ported yet (ROADMAP.md, queue 1: "
+                "odd-rate and resampled front ends)")
+        if round(spsf) % 2:
+            raise NotImplementedError(
+                f"{sample_rate / 1e6:g} Msps is an odd rate: the strided "
+                "conv bank is not ported yet (ROADMAP.md, queue 1: odd-rate "
+                "and resampled front ends)")
+        if enable_le:
+            raise NotImplementedError(
+                "the LE access-address detector is not ported yet "
+                "(ROADMAP.md, queue 1: LE branch of the step)")
+        self.device = resolve_device(device)
+        self.input_rate = sample_rate
+        self.bank = b = pfb.make_pfb_bank(sample_rate, center_freq)
+        sc = snr.make_stream_snr_consts(b)
+        self.block_slots = block_slots
+        self.samples_per_slot = SYMBOLS_PER_SLOT * b.sps
+        # wideband samples consumed per block step
+        self.step_samples = self.block_slots * self.samples_per_slot
+        # extra samples needed: lookahead slots + filter/demod history
+        self.overlap_samples = (LOOKAHEAD_SLOTS * self.samples_per_slot +
+                                (b.ntaps - 1) + 4 * b.decim)
+        self.block_samples = self.step_samples + self.overlap_samples
+        self.n_sym = (self.block_slots + LOOKAHEAD_SLOTS) * SYMBOLS_PER_SLOT
+        # the bit stream LEADS the input by the filter group delay: symbol
+        # t sits at wideband sample ~ t*sps + (ntaps-1)/2 + decim; used when
+        # attributing a detection offset to a slot / clkn
+        self.delay_sym = int(round(((b.ntaps - 1) / 2 + b.decim) / b.sps))
+        # 2 hits/slot + margin; overflow is detected and logged
+        self.max_hits = max_hits or max(128, 2 * block_slots + 64)
+
+        Q = b.h0.shape[0]
+        n_y = self.block_samples // b.decim - 2 * Q   # true output frames
+        n_off = self.n_sym - 72 + 1
+        self.statics = dict(
+            decim=b.decim, n_sym=self.n_sym, n_y=n_y, slot_ch=sc.slot_ch,
+            kappa=sc.kappa, demod_gain=b.demod_gain,
+            max_ac_errors=max_ac_errors, delay_sym=self.delay_sym,
+            squelch=(float(squelch_threshold) if use_squelch else None),
+            max_hits=self.max_hits)
+        s0, ma = _word_slot_consts(-(-n_off // 32), self.delay_sym)
+        self.consts = consts_to_device(dict(
+            h0=b.h0, h1=b.h1, dft_c=b.dft_c, dft_s=b.dft_s,
+            bin_odd=b.bin_odd, probe_re=sc.taps_re, probe_im=sc.taps_im,
+            ac_masks=detect_kernel.ac_masks(), word_s0=s0, word_mask_a=ma),
+            self.device)
+        self._ingests: dict = {}        # wire -> PipelinedIngest
+
+    # ------------------------------------------------------------ device
+
+    def to_planes(self, x) -> torch.Tensor:
+        """Host or device samples -> (2, N) float32 planes on the device:
+        complex (N,) arrays are split, planes pass through."""
+        if isinstance(x, torch.Tensor):
+            if x.is_complex():
+                x = torch.stack([x.real, x.imag])
+            return x.to(self.device, torch.float32)
+        x = np.asarray(x)
+        if np.iscomplexobj(x):
+            x = np.stack([x.real, x.imag])
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device)
+
+    def device_step(self, x):
+        """The device pipeline on one block of wideband IQ (complex (N,)
+        or (2, N) float32 planes, host or device).  Returns device tensors
+        (snr_db, n_hits, hit_tab, windows, None, None, None), the JAX
+        package's 7-tuple with the LE outputs absent."""
+        return _device_step(self.to_planes(x), **self.consts, **self.statics)
+
+    # ------------------------------------------------------------ host
+
+    def process_block(self, x, slot_base: int) -> BlockResult:
+        from ..utils.metrics import metrics
+        with metrics.stage("device_step"):
+            outs = self.device_step(x)
+        with metrics.stage("assemble"):
+            res = self.assemble_block(
+                *(None if o is None else o.cpu().numpy() for o in outs),
+                slot_base=slot_base)
+        metrics.count("blocks", 1)
+        metrics.count("samples_in", self.step_samples)
+        metrics.count("classic_hits", len(res.hits))
+        metrics.count("le_hits", len(res.le_hits))
+        return res
+
+    def assemble_block(self, snr_db, n_hits, hit_tab, windows,
+                       n_le=None, le_tab=None, le_windows=None, *,
+                       slot_base: int) -> BlockResult:
+        """Host-side assembly of one device step's outputs into hits."""
+        from ..utils.metrics import metrics
+        snr_db = np.asarray(snr_db)
+        hit_tab = np.asarray(hit_tab)
+        windows = np.asarray(windows)
+        raw_hits = int(n_hits)
+        n_hits = min(raw_hits, hit_tab.shape[0])
+        if raw_hits > hit_tab.shape[0]:
+            # fixed-size extraction is channel-major: detections past the
+            # table end are LOST, not deferred — surface it so operators
+            # can raise max_hits / shrink blocks
+            dropped = raw_hits - hit_tab.shape[0]
+            metrics.count("hits_dropped", dropped)
+            log.warning("classic hit table overflow: %d detections > %d "
+                        "rows; %d dropped (raise max_hits or lower "
+                        "block_slots)", raw_hits, hit_tab.shape[0], dropped)
+
+        limit = self.block_slots * SYMBOLS_PER_SLOT
+        hits: list[Hit] = []
+        last_end: dict[int, int] = {}
+        order = np.argsort(hit_tab[:n_hits, 1], kind="stable")
+        for k in order:
+            c, t, lap, err = (int(v) for v in hit_tab[k])
+            if t >= limit:
+                continue               # next block re-sees offsets >= limit
+            if t < last_end.get(c, 0):
+                continue               # inside a previous AC (sniff skip rule)
+            tc = t + self.delay_sym    # group-delay-corrected position
+            slot = tc // SYMBOLS_PER_SLOT
+            s_db = float(snr_db[slot, c]) if slot < snr_db.shape[0] else 0.0
+            last_end[c] = t + SYMBOLS_AC_SHORT
+            hits.append(Hit(channel=self.bank.channels[c], chan_idx=c,
+                            clkn=(slot_base + slot) & 0x7FFFFFF,
+                            sym_offset=t, lap=lap, errors=err,
+                            snr_db=s_db, win_row=int(k)))
+        le_windows = np.zeros((0, LE_WIN_SYMBOLS // 32 + 1), np.int32)
+        return BlockResult(slot_base=slot_base, snr_db=snr_db, hits=hits,
+                           le_hits=[], windows=windows,
+                           le_windows=le_windows, n_slots=self.block_slots)
+
+    @staticmethod
+    def _unpack_window(row: np.ndarray, n: int) -> np.ndarray:
+        """Window rows arrive bit-aligned from the device."""
+        bits = np.unpackbits(np.ascontiguousarray(row).view(np.uint8),
+                             bitorder="little")
+        return bits[:n].astype(np.int8)
+
+    def packet_symbols(self, res: BlockResult, hit: Hit) -> np.ndarray:
+        """Symbol window for a hit (up to 5 slots), for packet decode."""
+        n = min(WIN_SYMBOLS, self.n_sym - hit.sym_offset)
+        return self._unpack_window(res.windows[hit.win_row], n)
+
+    def packet_symbols_matrix(self, res: BlockResult):
+        """All classic hits' symbol windows at once: (K, WIN_SYMBOLS)
+        uint8 plus per-row valid symbol counts — one unpackbits over the
+        block's window table."""
+        K = len(res.hits)
+        if K == 0:
+            return (np.zeros((0, WIN_SYMBOLS), np.uint8),
+                    np.zeros(0, np.int64))
+        rows = np.array([h.win_row for h in res.hits])
+        w = np.ascontiguousarray(res.windows[rows])    # hits' rows only
+        allbits = np.unpackbits(w.view(np.uint8).reshape(K, -1),
+                                axis=1, bitorder="little")
+        sym = allbits[:, :WIN_SYMBOLS]
+        sizes = np.array([min(WIN_SYMBOLS, self.n_sym - h.sym_offset)
+                          for h in res.hits], dtype=np.int64)
+        return sym, sizes
+
+    def stream(self, samples, start_clkn: int = 0, wire: str = "f32"):
+        """Iterate BlockResults over a long capture (host numpy input).
+
+        The production pipelined path (io.ingest): the overlap-save carry
+        lives on the device, each block's H2D copy carries only
+        step_samples of new data in the given wire format, and later
+        blocks are launched before earlier blocks' outputs are read.
+        Block placement and outputs equal stream_sync's."""
+        from ..io.ingest import PipelinedIngest, wire_chunks
+        from ..utils.metrics import metrics
+
+        ingest = self._ingests.get(wire)
+        if ingest is None:
+            ingest = self._ingests[wire] = PipelinedIngest(self, wire)
+        with metrics.stage("wire_encode"):
+            carry, chunks = wire_chunks(samples, self, wire, pad_tail=True)
+        return ingest.run(chunks, start_clkn, initial_carry=carry)
+
+    def stream_sync(self, samples, start_clkn: int = 0):
+        """Synchronous block loop (one blocking copy + step + fetch per
+        block) — the parity reference for stream()."""
+        samples = np.asarray(samples)
+        if np.iscomplexobj(samples):
+            samples = np.stack([samples.real, samples.imag]).astype(np.float32)
+        pos = 0
+        slot_base = start_clkn
+        n = samples.shape[1]
+        while pos + self.block_samples <= n:
+            yield self.process_block(samples[:, pos:pos + self.block_samples],
+                                     slot_base)
+            pos += self.step_samples
+            slot_base += self.block_slots
+        # tail: pad the final partial block with zeros
+        if pos < n:
+            tail = np.zeros((2, self.block_samples), dtype=np.float32)
+            tail[:, :n - pos] = samples[:, pos:]
+            yield self.process_block(tail, slot_base)
+
+
+def consts_to_device(consts: dict, device) -> dict:
+    """Numpy bank/detector constants -> the step's tensors on `device`
+    (word_s0 as int64 indices, the rest in their own dtypes)."""
+    out = {}
+    for k, v in consts.items():
+        v = np.asarray(v)
+        if k == "word_s0":
+            v = v.astype(np.int64)
+        out[k] = torch.from_numpy(np.array(v, copy=True)).to(device)
+    return out
+
+
+def _extract_hits_packed(hitw, max_hits: int):
+    """Bit-packed (C, W) int32 hit plane -> the first max_hits set bits
+    in channel-major order, with no host sync: an inclusive prefix sum
+    of the word popcounts places rank r in its word (searchsorted), and
+    a prefix sum over that word's 32 bits places it in the word.
+
+    Returns (count, chan, off, valid); count is the total popcount, which
+    may exceed max_hits; rows r >= count are not valid."""
+    C, W = hitw.shape
+    dev = hitw.device
+    flat = hitw.reshape(-1).to(torch.int64) & _M32
+    pc = popcount(flat)
+    cum = torch.cumsum(pc, 0)
+    count = cum[-1]
+    r = torch.arange(max_hits, device=dev)
+    widx = torch.searchsorted(cum, r, right=True).clamp(max=flat.numel() - 1)
+    rank = r - (cum[widx] - pc[widx])                 # rank inside the word
+    bits = (flat[widx][:, None] >> torch.arange(32, device=dev)) & 1
+    before = torch.cumsum(bits, 1) - bits             # set bits below each
+    b = ((bits == 1) & (before == rank[:, None])).to(torch.int32).argmax(1)
+    idx = widx * 32 + b
+    valid = r < count
+    nbits = W * 32
+    return count, idx // nbits, idx % nbits, valid
+
+
+def _squelch_gate_words(snr_db, word_s0, word_mask_a, squelch: float):
+    """Packed per-offset squelch gate: (S, C) slot SNR -> (C, W) int32
+    word planes to AND with the packed hit plane.  Word w's low `mask_a`
+    bits sit in slot s0[w], the rest in s0[w]+1; slot S mirrors S-1."""
+    S, C = snr_db.shape
+    g = snr_db.T >= squelch                            # (C, S)
+    g = torch.cat([g, g[:, -1:]], 1)                   # slot S mirrors S-1
+    g0 = g[:, word_s0.clamp(max=S)]
+    g1 = g[:, (word_s0 + 1).clamp(max=S)]
+    ma = word_mask_a[None, :]
+    return torch.where(g0, ma, 0) | torch.where(g1, ~ma, 0)
+
+
+def _word_slot_consts(n_words: int, delay_sym: int):
+    """Static per-word slot indices + intra-word slot-boundary masks for
+    _squelch_gate_words."""
+    w = np.arange(n_words, dtype=np.int64)
+    first = 32 * w + delay_sym                     # offset+delay of bit 0
+    s0 = first // SYMBOLS_PER_SLOT
+    boundary = (s0 + 1) * SYMBOLS_PER_SLOT - first  # bits before next slot
+    bp = np.clip(boundary, 0, 32)
+    mask_a = np.where(bp >= 32, np.int64(0xFFFFFFFF), (1 << bp) - 1)
+    return (s0.astype(np.int32),
+            mask_a.astype(np.int64).astype(np.uint32).view(np.int32))
+
+
+def _gather_windows(words, chan, off, valid, width_bits: int):
+    """(K,) channel/bit-offset -> (K, width_bits//32 + 1) int32 packed
+    symbol windows, BIT-ALIGNED to each hit's offset (bit b of word j is
+    the symbol at off + 32*j + b; words past the row read as zero, and
+    the last word's high bits are zero).  Rows that are not valid are
+    all zero."""
+    C, nw = words.shape
+    ww = width_bits // 32 + 1
+    dev = words.device
+    c = chan.clamp(0, C - 1)
+    ow = (off // 32).clamp(0, nw - 1)
+    idx = ow[:, None] + torch.arange(ww, device=dev)[None, :]
+    src = words.to(torch.int64) & _M32
+    u = src[c[:, None], idx.clamp(max=nw - 1)]
+    u = torch.where((idx < nw) & valid[:, None], u, 0)
+    nxt = torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], 1)
+    s = torch.where(valid, off % 32, 0)[:, None]
+    return u32_to_i32((u >> s) | ((nxt << (32 - s)) & _M32))
+
+
+def step_geometry(n_samples: int, Q: int, decim: int, n_sym: int,
+                  slot_ch: int, taps_len: int):
+    """Sizes of one block's step: (n, n_data, S, n_k, n_frames).
+
+    n true channel frames (frame j reads input frames j .. j+2Q-1);
+    n_data demod groups that start inside them (later groups give
+    all-ones words, as the TPU megakernel's tiles past the data do);
+    S slots; n_k probe grid points; n_frames channel frames pfb_snr
+    computes, from zeros past the data: enough for every data group's
+    window and every slot, rounded up to whole tiles."""
+    G = demod_kernel.GROUP_FRAMES
+    n = n_samples // decim - 2 * Q
+    n_data = -(-n // G)
+    S = n // slot_ch
+    n_k = snr.probe_points(S, slot_ch, taps_len)
+    n_t = demod_kernel.n_groups(n_sym, n_k)
+    need = max(G * min(n_data, n_t) + 2, S * slot_ch)
+    n_frames = -(-need // pfb_kernel.TF) * pfb_kernel.TF
+    return n, n_data, S, n_k, n_frames
+
+
+def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
+                 probe_im, ac_masks, word_s0, word_mask_a, decim, n_sym,
+                 n_y, slot_ch, kappa, demod_gain, max_ac_errors, delay_sym,
+                 squelch, max_hits):
+    """(2, N) float32 block on the device -> (snr_db, n_hits, tab,
+    windows, None, None, None), as gr_bluetooth_tpu's _device_step on its
+    staged Pallas branch."""
+    n, n_data, S, n_k, n_frames = step_geometry(
+        x_ri.shape[1], h0.shape[0], decim, n_sym, slot_ch,
+        probe_re.shape[0])
+    if n != n_y:
+        raise ValueError(f"block of {x_ri.shape[1]} samples gives {n} "
+                         f"frames, the front end expects {n_y}")
+
+    yr, yi, oe = pfb_kernel.pfb_snr(x_ri, h0, h1, dft_c, dft_s, bin_odd,
+                                    n_frames)
+    words, pe = demod_kernel.demod_pack(yr, yi, demod_gain, n_sym, probe_re,
+                                        probe_im, n_k, n_data)
+    snr_db = snr.assemble_slot_snr(oe, pe, S=S, slot_ch=slot_ch,
+                                   kappa=kappa, tile=pfb_kernel.TF)
+    words = words[:-1]                                 # drop the probe row
+
+    hitw, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
+                                         max_ac_errors, ac_masks)
+    if squelch is not None:
+        hitw = hitw & _squelch_gate_words(snr_db, word_s0, word_mask_a,
+                                          squelch)
+    n_hits, chan, off, valid = _extract_hits_packed(hitw, max_hits)
+    # windows are bit-aligned to each hit, so the LAP (symbols 38..61 =
+    # word 1 bits 6..29) and the AC error count are functions of the
+    # window itself
+    windows = _gather_windows(words, chan, off, valid, WIN_SYMBOLS)
+    wu = windows[:, :3].to(torch.int64) & _M32
+    lap, err = ac_errors(wu[:, 0], wu[:, 1], wu[:, 2] & 0xF, ac_masks)
+    neg = torch.full_like(chan, -1)
+    tab = torch.stack([torch.where(valid, chan, neg),
+                       torch.where(valid, off, neg),
+                       torch.where(valid, lap, neg),
+                       torch.where(valid, err, neg)], 1).to(torch.int32)
+    return snr_db, n_hits.to(torch.int32), tab, windows, None, None, None

@@ -1,0 +1,160 @@
+"""detect_words: bit-packed classic access-code detection.
+
+The port of gr_bluetooth_tpu/ops/detect_pallas.py (detect_words over the
+_planes_padded Pallas kernel, and pack_bits_words).  Words hold 32
+symbols each (bit b of word j is symbol 32j + b).  For every candidate
+offset o < n, with v_j the symbol at o + j (zero past the words):
+
+    err  = #{j < 68 : v_j != (A68 v[38:62] + C68)_j mod 2}
+    gate = min(dp, 5 - dp) + min(db, 7 - db) <= 2, dp/db the mismatches
+           of v[0:5] with 10101 and of v[61:68] with 1110010
+    hit  = gate & (err <= max_ac_errors)
+
+returned as packed (C, ceil(n/32)) int32 hit and gate planes with bits
+at offsets >= n zeroed (the reference's sniff_ac rule,
+lib/packet_impl.cc:246-268).
+
+CUDA kernel: csrc/detect_words.cu.  The plain PyTorch version below runs
+for CPU tensors and is the kernel's yardstick on the card; it works in
+int64 because torch has no popcount and no logical shift on int32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core import access_code
+from ..utils import cuda_build
+
+__all__ = ["ac_errors", "ac_masks", "detect_words", "detect_words_plain",
+           "pack_bits_words", "popcount", "u32_to_i32", "A68", "C68V"]
+
+_A, _C = access_code.affine_code()
+A68 = _A[:68].astype(np.int32)                    # (68, 24) 0/1
+C68V = _C[:68].astype(np.int32)                   # (68,)
+_PRE = 0x15        # symbols 0..4 = 1,0,1,0,1
+_BARK = 0x27       # symbols 61..67 = 1,1,1,0,0,1,0
+_M32 = 0xFFFFFFFF
+
+
+def ac_masks(a68=A68, c68v=C68V) -> np.ndarray:
+    """The affine AC map as 68-bit masks, three uint32 words each (stored
+    as int32): columns k of A68 at [3k, 3k+3), C68 at [72, 75)."""
+    def mask(bits):
+        v = sum(int(b) << j for j, b in enumerate(np.asarray(bits)[:68]))
+        return [(v >> (32 * i)) & _M32 for i in range(3)]
+    a68 = np.asarray(a68)
+    out = []
+    for k in range(24):
+        out += mask(a68[:, k] & 1)
+    out += mask(np.asarray(c68v) & 1)
+    return np.array(out, np.uint32).view(np.int32)
+
+
+def u32_to_i32(x):
+    """int64 tensor of uint32 values -> int32 tensor, same bits."""
+    return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def pack_bits_words(bits):
+    """(C, T) {0,1} -> (C, ceil(T/32)) int32; symbol t sits at word t//32
+    bit t%32 (byte-compatible with np.unpackbits(bitorder='little'))."""
+    C, T = bits.shape
+    nw = -(-T // 32)
+    b = torch.nn.functional.pad(bits.to(torch.int64), (0, nw * 32 - T))
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return u32_to_i32((b.reshape(C, nw, 32) << sh).sum(-1))
+
+
+def popcount(x):
+    """Popcount of int64 tensors holding values < 2^32."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _M32) >> 24
+
+
+def ac_errors(v0, v1, v2, masks):
+    """68-symbol windows as three uint32 words in int64 tensors (symbols
+    0-31, 32-63, 64-67) -> (lap, err): the LAP bits (symbols 38..61) and
+    the mismatches against the access code those bits predict."""
+    m = masks.to(torch.int64) & _M32
+    lap = (v1 >> 6) & 0xFFFFFF
+    p0, p1, p2 = m[72], m[73], m[74]
+    for k in range(24):
+        sel = -((lap >> k) & 1) & _M32
+        p0 = p0 ^ (m[3 * k] & sel)
+        p1 = p1 ^ (m[3 * k + 1] & sel)
+        p2 = p2 ^ (m[3 * k + 2] & sel)
+    err = popcount(v0 ^ p0) + popcount(v1 ^ p1) + popcount((v2 ^ p2) & 0xF)
+    return lap, err
+
+
+def detect_words_plain(words, n: int, max_ac_errors: int, masks):
+    """Plain PyTorch version of detect_words (same arguments/results)."""
+    C, W = words.shape
+    dev = words.device
+    n_words = -(-n // 32)
+    w = words.to(torch.int64) & _M32
+    w = torch.nn.functional.pad(w, (0, max(0, n_words + 3 - W)))
+    o = torch.arange(n_words * 32, device=dev)
+    q, r = o >> 5, o & 31
+
+    def view(i):                         # symbols o+32i .. o+32i+31
+        two = (w[:, q + i + 1] << 32) | w[:, q + i]
+        return (two >> r) & _M32
+
+    v0, v1, v2 = view(0), view(1), view(2) & 0xF
+    _, err = ac_errors(v0, v1, v2, masks)
+    dp = popcount((v0 ^ _PRE) & 0x1F)
+    db = popcount((((v1 >> 29) | (v2 << 3)) & 0x7F) ^ _BARK)
+    gate = (torch.minimum(dp, 5 - dp) + torch.minimum(db, 7 - db) <= 2)
+    gate = gate & (o < n)[None, :]
+    hit = gate & (err <= max_ac_errors)
+    return pack_bits_words(hit), pack_bits_words(gate)
+
+
+def _launcher():
+    fn = cuda_build.load("detect_words").detect_words_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, P, P, P, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def detect_words(words, n: int, max_ac_errors: int, masks):
+    """words (C, W) int32 packed symbol streams, n candidate offsets,
+    masks = ac_masks() as an int32 tensor on the words' device ->
+    (hit, gate) packed (C, ceil(n/32)) int32 planes.  A CPU tensor runs
+    the plain version; a CUDA tensor launches csrc/detect_words.cu
+    (counted in detect_words.launches)."""
+    if words.dtype != torch.int32 or words.ndim != 2:
+        raise TypeError("detect_words: words must be (C, W) int32")
+    if masks.dtype != torch.int32 or masks.shape != (75,) or \
+            masks.device != words.device:
+        raise ValueError("detect_words: masks must be ac_masks() as int32 "
+                         "on the words' device")
+    if n <= 0:
+        raise ValueError("detect_words: need at least one offset")
+    if words.device.type == "cpu":
+        return detect_words_plain(words, n, max_ac_errors, masks)
+    if words.device.type != "cuda":
+        raise ValueError(f"detect_words: unsupported device {words.device}")
+    C, W = words.shape
+    words = words.contiguous()
+    n_words = -(-n // 32)
+    hit = torch.empty((C, n_words), dtype=torch.int32, device=words.device)
+    gate = torch.empty_like(hit)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = _launcher()(words.data_ptr(), C, W, n, int(max_ac_errors),
+                     masks.data_ptr(), hit.data_ptr(), gate.data_ptr(),
+                     n_words, stream)
+    cuda_build.check(rc, "detect_words")
+    detect_words.launches += 1
+    return hit, gate
+
+
+detect_words.launches = 0

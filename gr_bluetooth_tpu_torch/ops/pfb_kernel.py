@@ -1,0 +1,123 @@
+"""pfb_snr: polyphase DFT channelizer + per-tile on-channel energies.
+
+The first stage of the port's version of the TPU megakernel
+gr_bluetooth_tpu/ops/pfb_kernel.py:pfb_channelize_snr_demod_fused; its
+second stage is ops/demod_kernel.py:demod_pack.  The TPU fuses both to
+keep the y streams out of HBM; here y makes one round trip through
+device memory (about 110 MB per full-band block, some 33 us on an
+H100), which leaves each kernel small enough for shared memory.
+
+CUDA kernel: csrc/pfb_snr.cu (see its note for the bound).  The plain
+PyTorch version below computes the same function and runs for tensors
+on the CPU; it is also the kernel's yardstick on the card.
+
+Frame j of the output covers input samples [jD, jD + 2QD) of the flat
+(2, N) planes; samples past n_x * D (n_x = N // D) read as zero, as the
+TPU's staged layout holds them, so frames past the data match it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils import cuda_build
+
+__all__ = ["TF", "pfb_snr", "pfb_snr_plain"]
+
+TF = 50            # frames per tile (csrc/pfb_snr.cu TF); divides slot_ch
+
+
+def _check(x, h0, h1, dft_c, dft_s, bin_odd, n_frames):
+    for name, t in (("x", x), ("h0", h0), ("h1", h1), ("dft_c", dft_c),
+                    ("dft_s", dft_s), ("bin_odd", bin_odd)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"pfb_snr: {name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"pfb_snr: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    Q, D = h0.shape
+    if x.ndim != 2 or x.shape[0] != 2:
+        raise ValueError(f"pfb_snr: x must be (2, N), got {tuple(x.shape)}")
+    if h1.shape != (Q, D) or dft_c.shape[0] != 2 * D or \
+            dft_s.shape != dft_c.shape or bin_odd.shape != dft_c.shape[1:]:
+        raise ValueError("pfb_snr: inconsistent bank shapes")
+    if n_frames <= 0 or n_frames % TF:
+        raise ValueError(f"pfb_snr: n_frames must be a positive multiple of "
+                         f"{TF}, got {n_frames}")
+
+
+def pfb_snr_plain(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
+    """Plain PyTorch version of pfb_snr (same arguments and results)."""
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    Q, D = h0.shape
+    n_x = x.shape[1] // D
+    need = n_frames + 2 * Q - 1
+    xv = x[:, : n_x * D].reshape(2, n_x, D)
+    if need > n_x:
+        xv = torch.nn.functional.pad(xv, (0, 0, 0, need - n_x))
+    v0 = torch.zeros((2, n_frames, D), dtype=torch.float32, device=x.device)
+    v1 = torch.zeros_like(v0)
+    for q in range(Q):
+        v0 = v0 + xv[:, 2 * q: 2 * q + n_frames] * h0[q]
+        v1 = v1 + xv[:, 2 * q + 1: 2 * q + 1 + n_frames] * h1[q]
+    u = torch.cat([v0, v1], dim=2)                      # (2, F, M)
+    yr = (u[0] @ dft_c + u[1] @ dft_s).T                # (C, F)
+    yi = (u[1] @ dft_c - u[0] @ dft_s).T
+    odd = (torch.arange(n_frames, device=x.device) & 1).to(torch.float32)
+    sign = 1.0 - 2.0 * (bin_odd[:, None] * odd[None, :])
+    yr = (yr * sign).contiguous()
+    yi = (yi * sign).contiguous()
+    C = yr.shape[0]
+    oe = (yr * yr + yi * yi).reshape(C, n_frames // TF, TF).sum(-1)
+    return yr, yi, oe
+
+
+def _launcher():
+    lib = cuda_build.load("pfb_snr")
+    fn = lib.pfb_snr_launch
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, L, L, P, P, P, P, P, I, I, I, I, P, P, P, P]
+        fn.restype = ctypes.c_int
+        if lib.pfb_snr_tile_frames() != TF:
+            raise RuntimeError("csrc/pfb_snr.cu TF differs from "
+                               "ops/pfb_kernel.TF")
+    return fn
+
+
+def pfb_snr(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
+    """Channelize one block: x (2, N) float32 planes, bank constants
+    h0/h1 (Q, D), dft_c/dft_s (M, C), bin_odd (C,).
+
+    Returns yr, yi (C, n_frames) float32 channel streams and oe
+    (C, n_frames // TF) float32 on-energy sums per TF-frame tile.
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/pfb_snr.cu (and counts it in pfb_snr.launches)."""
+    _check(x, h0, h1, dft_c, dft_s, bin_odd, n_frames)
+    if x.device.type == "cpu":
+        return pfb_snr_plain(x, h0, h1, dft_c, dft_s, bin_odd, n_frames)
+    if x.device.type != "cuda":
+        raise ValueError(f"pfb_snr: unsupported device {x.device}")
+    Q, D = h0.shape
+    C = dft_c.shape[1]
+    x, h0, h1, dft_c, dft_s, bin_odd = (
+        t.contiguous() for t in (x, h0, h1, dft_c, dft_s, bin_odd))
+    yr = torch.empty((C, n_frames), dtype=torch.float32, device=x.device)
+    yi = torch.empty_like(yr)
+    oe = torch.empty((C, n_frames // TF), dtype=torch.float32,
+                     device=x.device)
+    n_x = x.shape[1] // D
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _launcher()(x.data_ptr(), n_x * D, x.shape[1], h0.data_ptr(),
+                     h1.data_ptr(), dft_c.data_ptr(), dft_s.data_ptr(),
+                     bin_odd.data_ptr(), Q, D, C, n_frames, yr.data_ptr(),
+                     yi.data_ptr(), oe.data_ptr(), stream)
+    cuda_build.check(rc, "pfb_snr")
+    pfb_snr.launches += 1
+    return yr, yi, oe
+
+
+pfb_snr.launches = 0

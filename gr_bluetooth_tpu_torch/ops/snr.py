@@ -1,0 +1,111 @@
+"""Per-slot, per-channel SNR squelch from the channel streams.
+
+On-channel energy is mean |y|^2 over the slot, straight from the channel
+streams (the reference's definition, lib/multi_block.cc:180-228).  The
+off-channel probe at f_c + 790 kHz (multi_block.cc:253-296) is read at
+-210 kHz inside channel c+1's stream: a short complex band-pass at the
+2 Msps channel rate, evaluated on a 40-frame grid, rescaled by `kappa` to
+the reference's 22.5 kHz full-rate probe so the on/off ratio (and the
+10 dB squelch) keeps its meaning on a flat noise floor.
+
+The constants are a copy of gr_bluetooth_tpu/ops/snr.py's
+make_stream_snr_consts.  The partials come from the kernels
+(ops/pfb_kernel.pfb_snr's per-tile energies, ops/demod_kernel.demod_pack's
+probe energies); `assemble_slot_snr` turns them into the (S, C) slot SNR
+with the grouping of gr_bluetooth_tpu/ops/snr.py:assemble_fused_snr.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..constants import (CHANNEL_FILTER_CUTOFF, CHANNEL_FILTER_TRANSITION,
+                         CHANNEL_WIDTH, NOISE_FILTER_CUTOFF,
+                         NOISE_FILTER_TRANSITION, NOISE_PROBE_OFFSET,
+                         SYMBOLS_PER_SLOT)
+from .filters import lowpass_taps
+
+__all__ = ["PROBE_STRIDE", "StreamSnrConsts", "make_stream_snr_consts",
+           "probe_points", "assemble_slot_snr"]
+
+PROBE_STRIDE = 40                       # probe energy samples per slot: ~31
+
+
+@dataclass(frozen=True)
+class StreamSnrConsts:
+    """Constants for the stream-based squelch (no FFT, no full-rate FIRs)."""
+    slot_ch: int                  # channel-rate samples per slot
+    taps_re: np.ndarray           # (T,) probe band-pass, real part
+    taps_im: np.ndarray           # (T,) probe band-pass, imag part
+    kappa: float
+
+
+def make_stream_snr_consts(bank) -> StreamSnrConsts:
+    ch_fs = bank.fs / bank.decim
+    slot_ch = int(round(SYMBOLS_PER_SLOT * bank.ch_sps))
+    # 2x the reference's 10 kHz transition: halves the tap count; kappa
+    # below renormalizes the equivalent noise bandwidth so the on/off ratio
+    # (and the 10 dB squelch meaning) is unchanged on a flat floor
+    g = lowpass_taps(1.0, ch_fs, NOISE_FILTER_CUTOFF,
+                     2.0 * NOISE_FILTER_TRANSITION)
+    t = np.arange(len(g))
+    theta = -2.0 * np.pi * ((NOISE_PROBE_OFFSET - CHANNEL_WIDTH) / ch_fs) * t
+    taps_re = (g * np.cos(theta)).astype(np.float32)
+    taps_im = (g * np.sin(theta)).astype(np.float32)
+    # reference probe: 22.5 kHz cut / 10 kHz transition at the full rate
+    h_ref = lowpass_taps(1.0, bank.fs, NOISE_FILTER_CUTOFF,
+                         NOISE_FILTER_TRANSITION)
+    h_ch = lowpass_taps(1.0, bank.fs, CHANNEL_FILTER_CUTOFF,
+                        CHANNEL_FILTER_TRANSITION)
+    # white-noise energies: reference off = sigma^2 sum h_ref^2 ; ours =
+    # sigma^2 sum h_ch^2 * sum g^2 (probe runs on the channelized stream)
+    kappa = float(np.sum(h_ref ** 2) /
+                  (np.sum(h_ch ** 2) * np.sum(g ** 2)))
+    return StreamSnrConsts(slot_ch, taps_re, taps_im, kappa)
+
+
+def probe_points(S: int, slot_ch: int, taps_len: int) -> int:
+    """Probe grid points the S-slot assembly reads: every window
+    [40k, 40k + Tp) inside the first S slots, Tp the tap count rounded
+    up to the stride."""
+    Tp = -(-taps_len // PROBE_STRIDE) * PROBE_STRIDE
+    n_k = (S * slot_ch - Tp) // PROBE_STRIDE + 1
+    if n_k < 1:
+        raise ValueError("block too short for the probe band-pass")
+    return n_k
+
+
+def assemble_slot_snr(oe, pe, *, S: int, slot_ch: int, kappa: float,
+                      tile: int):
+    """(S, C) slot SNR in dB from the kernels' partials.
+
+    oe (C+1, G) on-energy sums over `tile`-frame tiles (tile divides
+    slot_ch); pe (C+1, n_k) probe energies on the 40-frame grid.  Row
+    C is the probe row above the top channel: channel c's noise comes
+    from row c+1.  on = slot mean of |y|^2; off = mean of the probe
+    energies k in [31s, 31s + 31), the slots past the last full group
+    edge-padded from it, times kappa."""
+    if slot_ch % tile:
+        raise ValueError(f"tile {tile} does not divide slot_ch {slot_ch}")
+    Cp, G = oe.shape
+    C = Cp - 1
+    dev = oe.device
+    slot_of_tile = (torch.arange(G, device=dev) * tile) // slot_ch
+    on = torch.zeros((S + 1, C), dtype=torch.float32, device=dev)
+    on.index_add_(0, slot_of_tile.clamp(max=S), oe[:C].T)
+    on = on[:S] / slot_ch
+
+    n_k = pe.shape[1]
+    per_slot = slot_ch // PROBE_STRIDE
+    Sp = min(S, n_k // per_slot)
+    group = torch.arange(n_k, device=dev) // per_slot
+    off = torch.zeros((Sp + 1, C), dtype=torch.float32, device=dev)
+    off.index_add_(0, group.clamp(max=Sp), pe[1:C + 1].T)
+    off = off[:Sp] / per_slot
+    if Sp < S:
+        off = torch.cat([off, off[-1:].expand(S - Sp, C)], 0)
+    off = off * kappa
+    return 10.0 * (torch.log10(torch.clamp(on, min=1e-30)) -
+                   torch.log10(torch.clamp(off, min=1e-30)))

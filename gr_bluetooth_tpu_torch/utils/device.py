@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the CUDA device unless the caller names another
+device.  With no device given and no card present they raise: nothing
+carries on quietly on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the current CUDA device,
+    and raises when there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,166 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here carries the `gpu` marker and skips without a CUDA device
+(decided in the fixture, so every worker collects the same tests).  This
+file imports neither JAX nor the JAX package, and tests/conftest.py
+imports JAX, so on a machine without JAX run it as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances are the card's: the kernels contract multiply-adds into FMAs
+and sum in another order than the plain versions, so channel streams
+agree within 2e-5, slot SNR within 1e-3 dB, packed symbols up to one
+mismatch per 10^5 (at least one allowed), detector planes exactly.
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from gr_bluetooth_tpu_torch.io import ingest
+from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
+from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel, pfb,
+                                        pfb_kernel, snr)
+from gr_bluetooth_tpu_torch.utils import cuda_build
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def fe8(cuda):
+    return FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=6)
+
+
+def _popcount_diff(a, b):
+    return int(detect_kernel.popcount((a ^ b).to(torch.int64) & 0xFFFFFFFF)
+               .sum().item())
+
+
+def test_kernels_build(cuda):
+    libs = cuda_build.build_all()
+    assert set(libs) == set(cuda_build.SOURCES)
+    assert all(p.exists() for p in libs.values())
+
+
+def test_pfb_snr_kernel_matches_plain(cuda):
+    b = pfb.make_pfb_bank(20e6, 2450e6)
+    bank = [torch.from_numpy(a.copy()).to(cuda)
+            for a in (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.normal(0, 0.5, (2, 123457)).astype(np.float32))
+    x = x.to(cuda)
+    n_frames = 6200                    # past the data: frames read zeros
+    before = pfb_kernel.pfb_snr.launches
+    yr, yi, oe = pfb_kernel.pfb_snr(x, *bank, n_frames)
+    assert pfb_kernel.pfb_snr.launches == before + 1
+    pr, pi, poe = pfb_kernel.pfb_snr_plain(x, *bank, n_frames)
+    torch.testing.assert_close(yr, pr, atol=2e-5, rtol=0)
+    torch.testing.assert_close(yi, pi, atol=2e-5, rtol=0)
+    torch.testing.assert_close(oe, poe, atol=1e-4, rtol=1e-4)
+
+
+def test_demod_pack_kernel_matches_plain(cuda):
+    """Including groups past the data (all-ones words) and a tail word."""
+    sc = snr.make_stream_snr_consts(pfb.make_pfb_bank(8e6, 2441e6))
+    taps = [torch.from_numpy(a.copy()).to(cuda)
+            for a in (sc.taps_re, sc.taps_im)]
+    r = np.random.default_rng(1)
+    C, F = 9, 7000
+    ph = np.cumsum(r.normal(0, 0.8, (C, F)), axis=1)
+    y = np.exp(1j * ph) + 0.05 * (r.normal(size=(C, F)) +
+                                  1j * r.normal(size=(C, F)))
+    yr = torch.from_numpy(y.real.astype(np.float32)).to(cuda)
+    yi = torch.from_numpy(y.imag.astype(np.float32)).to(cuda)
+    n_sym, n_k = 4000, 120
+    for n_data in (None, 5):
+        args = (yr, yi, 1.2732395447351628, n_sym, *taps, n_k, n_data)
+        words, pe = demod_kernel.demod_pack(*args)
+        pw, ppe = demod_kernel.demod_pack_plain(*args)
+        assert words.shape == pw.shape == (C, -(-n_sym // 32))
+        assert _popcount_diff(words, pw) <= max(1, C * n_sym * 1e-5)
+        torch.testing.assert_close(pe, ppe, atol=1e-6, rtol=1e-4)
+        if n_data is not None:
+            assert bool((words[:, 5 * 16: -1] == -1).all())
+
+
+@pytest.mark.parametrize("max_ac_errors", [1, 6])
+def test_detect_words_kernel_is_exact(cuda, max_ac_errors):
+    from gr_bluetooth_tpu_torch.core.access_code import ac_bits
+    r = np.random.default_rng(2)
+    C, T = 7, 20000
+    bits = r.integers(0, 2, (C, T)).astype(np.int64)
+    for i, off in enumerate((0, 31, 32, 4095, 4096, 9000, T - 72)):
+        ac = ac_bits(0x24D952 + i)[:68].copy()
+        ac[5 + i] ^= i % 2
+        bits[i % C, off:off + 68] = ac
+    words = detect_kernel.pack_bits_words(torch.from_numpy(bits)).to(cuda)
+    masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    for W in (words.shape[1], words.shape[1] - 5):      # zero past W
+        n = W * 32 - 71
+        hit, gate = detect_kernel.detect_words(words[:, :W].contiguous(), n,
+                                               max_ac_errors, masks)
+        ph, pg = detect_kernel.detect_words_plain(words[:, :W], n,
+                                                  max_ac_errors, masks)
+        assert torch.equal(hit, ph) and torch.equal(gate, pg)
+        assert int(detect_kernel.popcount(hit.to(torch.int64) & 0xFFFFFFFF)
+                   .sum()) >= 5
+
+
+def test_device_step_on_card_matches_cpu(fe8):
+    """The whole step through the three kernels against the plain
+    versions on the CPU: same hit table, windows within the symbol
+    tolerance, SNR within 1e-3 dB; each kernel launched once."""
+    fc = FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=6, device="cpu")
+    x, planted = chip_smoke.plant_capture(fc, 1, seed=4)
+    counts = [k.launches for k in chip_smoke.KERNELS]
+    og = fe8.device_step(x)
+    assert [k.launches for k in chip_smoke.KERNELS] == \
+        [c + 1 for c in counts]
+    oc = fc.device_step(x)
+    assert og[0].is_cuda and og[2].is_cuda
+    torch.testing.assert_close(og[0].cpu(), oc[0], atol=1e-3, rtol=0)
+    assert int(og[1]) == int(oc[1]) >= 10
+    assert torch.equal(og[2].cpu(), oc[2])
+    w = og[3].cpu()
+    assert _popcount_diff(w, oc[3]) <= max(1, w.numel() * 32 * 1e-5)
+
+
+def test_stream_on_card_matches_stream_sync(fe8):
+    """The pipelined ingest (int16 wire, device carry, packed outputs)
+    against the synchronous loop on the same quantized samples, over a
+    capture whose last block is zero-padded."""
+    x, planted = chip_smoke.plant_capture(fe8, 3, seed=6)
+    x = 0.25 * x[:-1000]                  # inside int16 full scale
+    a = list(fe8.stream(x, start_clkn=7, wire="i16"))
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    b = list(fe8.stream_sync(
+        ingest.wire_decode_np(ingest.wire_encode(planes, "i16"), "i16"),
+        start_clkn=7))
+    key = [[(h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+            for h in r.hits] for r in a]
+    assert len(a) == len(b) == 3
+    assert key == [[(h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+                    for h in r.hits] for r in b]
+    assert sum(map(len, key)) >= 15
+
+
+def test_wrappers_raise_on_bad_cuda_input(cuda):
+    masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    with pytest.raises(TypeError):
+        detect_kernel.detect_words(torch.zeros((2, 8), device=cuda), 32, 1,
+                                   masks)
+    h = torch.zeros((7, 4), device=cuda)
+    with pytest.raises(ValueError):
+        pfb_kernel.pfb_snr(torch.zeros((2, 400), device=cuda), h, h,
+                           torch.zeros((8, 3), device=cuda),
+                           torch.zeros((8, 3), device=cuda),
+                           torch.zeros(3, device=cuda), 49)
