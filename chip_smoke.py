@@ -8,34 +8,59 @@ NVIDIA card, at the full-band configuration: 80 Msps centred on
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit, from nvidia-smi;
-2. build the three CUDA kernels from csrc/ (nvcc, one process each);
+2. build the five CUDA kernels from csrc/ (nvcc, one process each, all
+   started together);
 3. on one full-band block, run each kernel and its plain PyTorch version
    on the same device tensors and hold them together:
-       pfb_snr       y within 2e-5, slot SNR within 1e-3 dB
-       demod_pack    at most 1 mismatched symbol per 10^5
-       detect_words  exact
-   and time each with CUDA events beside the plain version (and, for
-   pfb_snr, beside a cuDNN conv1d computing the same channel streams);
-   then time the block's whole device step and profile a few steps;
+       pfb_snr         y within 2e-5, slot SNR within 1e-3 dB
+       demod_pack      at most 1 mismatched symbol per 10^5
+       detect_words    exact
+       deinterleave    exact
+       pfb_channelize  y within 2e-5
+   and time each with CUDA events beside the plain version and, where
+   one PyTorch call computes the same function, beside that call (a
+   cuDNN conv1d for the two channelizers, one reshape-transpose copy for
+   deinterleave); then time the block's whole device step on each of the
+   two chains and profile a few steps of each: the fused chain
+   (FrontEnd.fused_step, which stream() runs) and the flat chain
+   (FrontEnd.device_step, which stream_sync() runs);
 4. the main path: LapSurvey(80e6, 2441e6, block_slots=64).run over a
    synthesized capture of a few blocks with ID packets of 7 LAPs planted
    on 24 channels (0 and 78 among them), several per slot, through the
-   pipelined stream.  Every planted (LAP, channel) must be reported at
-   its slot (+-1), no other LAP may be, and every kernel's launch count
-   must equal the number of blocks.  The same capture runs once more,
-   warm, for the steady-state rate and its stage breakdown;
-5. a small reference: an 8 Msps survey on the card against the plain
+   pipelined stream (the fused chain).  Every planted (LAP, channel) must
+   be reported at its slot (+-1), no other LAP may be, and the launch
+   count of each fused-chain kernel must equal the number of blocks.
+   The same capture runs once more, warm, for the steady-state rate and
+   its stage breakdown;
+5. the flat path: FrontEnd(80e6, 2441e6, block_slots=64,
+   max_ac_errors=1, enable_le=True).stream_sync over a capture of 3
+   blocks with the ID packets of phase 4 and LE advertising packets on
+   LE channels 37, 38 and 39 (BR channels 0, 24 and 78).  Every planted
+   (LAP, channel) and every planted LE packet must be reported at its
+   slot (+-1), no other LAP and no other advertising-channel packet may
+   be, and deinterleave, pfb_channelize and detect_words must each
+   launch once per block (pfb_snr and demod_pack not at all).  The same
+   capture through stream() (the fused chain, LE on) must give the same
+   classic and LE hit keys, slot SNR within 1e-3 dB, and hit windows
+   within 1 mismatched symbol per 10^5 inside the capture (the
+   discriminators differ: torch.atan2 on the flat chain, atan2_poly in
+   demod_pack; past the capture's end, in the zero padding of the last
+   block, they differ on signed zeros, and those symbols are counted
+   and printed apart);
+6. a small reference: an 8 Msps survey on the card against the plain
    versions on the CPU — same observations, SNR within 1e-3 dB.
 
 The next-to-last line is {"kernels": [...]} (times in ms on this card;
 bound_ms is the larger of bytes / 3.35 TB/s and operations over the peak
 rate of their type: 67 T/s for float32, 16.75 T/s for int32 and logical
-operations); the last line is {"ok": true, "device": {...}}.  With no
+operations; the channelizers' DFT counts as an M-point FFT at
+5 M log2 M); the last line is {"ok": true, "device": {...}}.  With no
 CUDA device the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,27 +68,38 @@ import time
 import numpy as np
 import torch
 
+from gr_bluetooth_tpu_torch.constants import LE_ADV_AA, SYMBOLS_PER_SLOT
+from gr_bluetooth_tpu_torch.core import whitening
 from gr_bluetooth_tpu_torch.core.access_code import ac_bits
 from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
-from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel,
+from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel, pfb,
                                         pfb_kernel, snr, synth)
 from gr_bluetooth_tpu_torch.utils import cuda_build
+from gr_bluetooth_tpu_torch.utils.bits import host_to_air
 
 FS, CENTER, BLOCK_SLOTS, N_BLOCKS = 80e6, 2441e6, 64, 3
 LAPS = (0x24D952, 0x9E8B33, 0x123456, 0xABCDEF, 0x5A17EC, 0x000F0F,
         0xC0FFEE)
+# LE advertising channels 37, 38, 39 on the BR channel grid
+LE_ADV_CHANNELS = {0: 37, 24: 38, 78: 39}
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_OPS = 67e12           # H100 SXM non-tensor float32, operations/s
 # int32 add/shift/logical: 64 lanes per SM against float32's 128, one
 # operation per lane and clock where the float32 rate counts an FMA as 2
 INT32_OPS = FP32_OPS * 64 / 128 / 2
-KERNELS = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
-           detect_kernel.detect_words)
+# the fused chain's kernels (stream()) and the flat chain's (stream_sync())
+FUSED = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
+         detect_kernel.detect_words)
+FLAT = (pfb.deinterleave, pfb_kernel.pfb_channelize,
+        detect_kernel.detect_words)
+KERNELS = FUSED + FLAT[:2]
 REPLACES = {
     "pfb_snr": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "demod_pack": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "detect_words": "gr_bluetooth_tpu/ops/detect_pallas.py:200",
+    "pfb_channelize": "gr_bluetooth_tpu/ops/pfb_kernel.py:193",
+    "deinterleave": "gr_bluetooth_tpu/ops/pfb.py:126",
 }
 
 
@@ -75,20 +111,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def plant_capture(fe, n_blocks: int, seed: int = 1):
-    """Wideband capture of exactly n_blocks steps (plus the overlap) with
-    ID packets (72-symbol access code + 60 random symbols) of LAPS on up
-    to 24 of the bank's channels, the first and last among them, four
-    packets per slot on different channels.  Returns (complex64 samples,
-    [(lap, channel, slot)])."""
-    r = np.random.default_rng(seed)
+def _classic_plan(fe, n_slots: int, r, busy: set):
+    """ID packets (72-symbol access code + 60 random symbols) of LAPS on
+    up to 24 of the bank's channels, the first and last among them, four
+    packets per slot on different channels."""
     ch_all = fe.bank.channels
     pick = np.unique(np.linspace(0, len(ch_all) - 1,
                                  min(24, len(ch_all))).round().astype(int))
     chans = [ch_all[i] for i in pick]
-    n_slots = n_blocks * fe.block_slots
     sps = fe.bank.sps
-    plan, planted, busy = [], [], set()
+    plan, planted = [], []
     for i in range(5 * len(chans)):
         ch = chans[i % len(chans)]
         slot = 1 + ((i // 4) * 11) % (n_slots - 3)
@@ -98,15 +130,84 @@ def plant_capture(fe, n_blocks: int, seed: int = 1):
         lap = LAPS[i % len(LAPS)]
         bits = np.concatenate([ac_bits(lap)[:72],
                                r.integers(0, 2, 60).astype(np.uint8)])
-        start = (slot * 625 + int(r.integers(0, 400))) * sps
+        start = (slot * SYMBOLS_PER_SLOT + int(r.integers(0, 400))) * sps
         plan.append(synth.PlannedPacket(channel=ch, start_sample=start,
                                         bits=bits))
         planted.append((lap, ch, slot))
+    return plan, planted
+
+
+def _synth(fe, plan, n_samples: int, seed: int):
+    return synth.synthesize_capture(plan, n_samples=n_samples,
+                                    fs=fe.input_rate,
+                                    center_freq=fe.bank.center_freq,
+                                    noise_std=0.02, seed=seed)
+
+
+def plant_capture(fe, n_blocks: int, seed: int = 1):
+    """Wideband capture of exactly n_blocks steps (plus the overlap) with
+    the ID packets of _classic_plan.  Returns (complex64 samples,
+    [(lap, channel, slot)])."""
+    r = np.random.default_rng(seed)
+    plan, planted = _classic_plan(fe, n_blocks * fe.block_slots, r, set())
     n = fe.overlap_samples + n_blocks * fe.step_samples
-    x = synth.synthesize_capture(plan, n_samples=n, fs=fe.input_rate,
-                                 center_freq=fe.bank.center_freq,
-                                 noise_std=0.02, seed=seed)
-    return x, planted
+    return _synth(fe, plan, n, seed), planted
+
+
+def le_adv_frame(index: int, pdu_type: int, payload: bytes) -> np.ndarray:
+    """LE advertising packet symbols without CRC: preamble, access
+    address 0x8E89BED6, then the header and payload whitened for LE
+    channel `index` (the JAX package's packets.encode_le_adv with
+    crc=False)."""
+    aa_bits = host_to_air(LE_ADV_AA, 32)
+    preamble = host_to_air(0x155 if aa_bits[0] else 0x0AA, 9)[:8]
+    header = np.zeros(16, np.uint8)
+    header[0:4] = host_to_air(pdu_type, 4)
+    header[8:14] = host_to_air(len(payload), 6)
+    body = host_to_air(np.frombuffer(payload, np.uint8), 8).reshape(-1)
+    pdu = np.concatenate([header, body])
+    pdu = pdu ^ whitening.le_whitening_word(index, len(pdu))
+    return np.concatenate([preamble, aa_bits, pdu]).astype(np.uint8)
+
+
+def plant_le_capture(fe, n_blocks: int, seed: int = 2, le_per_block=3):
+    """Capture of exactly n_blocks * block_slots slots (stream_sync and
+    stream both cut it into n_blocks blocks, the last zero-padded past
+    the capture) with the ID packets of _classic_plan and, on each LE
+    advertising channel the bank covers, le_per_block advertising
+    packets per block (9-byte payloads, in slots free on that channel).
+    Returns (complex64 samples, [(lap, channel, slot)],
+    [(LE index, BR channel, slot)])."""
+    r = np.random.default_rng(seed)
+    n_slots = n_blocks * fe.block_slots
+    busy: set = set()
+    plan, planted = _classic_plan(fe, n_slots, r, busy)
+    le_planted = []
+    sps = fe.bank.sps
+    B = fe.block_slots
+    stride = max(2, (B - 6) // le_per_block)
+    for k, (ch, index) in enumerate(LE_ADV_CHANNELS.items()):
+        if ch not in fe.bank.channels:
+            continue
+        for i in range(n_blocks * le_per_block):
+            want = min((i // le_per_block) * B + 2 + k +
+                       (i % le_per_block) * stride, n_slots - 3)
+            # the wanted slot, else the first free one
+            for slot in [want, *range(2, n_slots - 2)]:
+                if not {(ch, slot - 1), (ch, slot), (ch, slot + 1)} & busy:
+                    break
+            else:
+                continue
+            busy.add((ch, slot))
+            bits = le_adv_frame(index, i % 7,
+                                bytes(r.integers(0, 256, 9).tolist()))
+            start = (slot * SYMBOLS_PER_SLOT + int(r.integers(0, 400))) * sps
+            plan.append(synth.PlannedPacket(
+                channel=ch, start_sample=start,
+                bits=np.concatenate([bits, np.zeros(8, np.uint8)])))
+            le_planted.append((index, ch, slot))
+    x = _synth(fe, plan, n_blocks * fe.step_samples, seed)
+    return x, planted, le_planted
 
 
 def check_survey(observations, planted, start_clkn: int = 0):
@@ -126,6 +227,83 @@ def check_survey(observations, planted, start_clkn: int = 0):
     missing = set(want) - seen
     assert not missing, f"planted but not reported: {sorted(missing)}"
     return len(seen)
+
+
+def check_le(le_hits, le_planted, start_clkn: int = 0):
+    """Every planted LE packet reported as a LeHit with its LE index and
+    BR channel at its slot +-1, and every hit on an advertising channel
+    (index >= 37) is a planted packet.  Returns the matched count."""
+    want = {(i, ch, slot + start_clkn) for i, ch, slot in le_planted}
+    found = set()
+    for h in le_hits:
+        near = {(h.index, h.channel, h.clkn + d) for d in (-1, 0, 1)} & want
+        if h.index >= 37:
+            assert near, (f"unplanted LE advertising hit: index {h.index} "
+                          f"channel {h.channel} at clkn {h.clkn}")
+        found |= near
+    missing = want - found
+    assert not missing, f"planted LE packets not reported: {sorted(missing)}"
+    return len(found)
+
+
+def capture_symbols(fe, n_samples, block: int) -> int:
+    """Symbols of block `block` of an n_samples capture that both chains
+    must agree on: those in timing groups that end before the symbols
+    whose input reaches past the capture.  Past the capture's end the
+    block is zero-padded and y is exactly zero, often with a sign bit
+    set by the (-1)^{cn} rotator; there torch.atan2 (the flat chain, as
+    jnp.arctan2 in the JAX package's) returns +-pi for the signed zeros
+    and atan2_poly (demod_pack, as the TPU kernel) returns 0, which can
+    move the timing phase of the whole group that reaches past the
+    end."""
+    if n_samples is None:
+        return fe.n_sym
+    end = ((n_samples - block * fe.step_samples - fe.bank.ntaps)
+           // fe.bank.sps - 2)
+    G = demod_kernel.GROUP
+    return min(fe.n_sym, max(0, end) // G * G)
+
+
+def compare_chains(fe, flat, fused, n_samples=None):
+    """The same capture's BlockResults from the flat chain (stream_sync)
+    and the fused chain (stream()): identical classic and LE hit keys,
+    slot SNR within 1e-3 dB, and the hits' symbol windows, where they
+    lie inside the capture (capture_symbols, for a capture of n_samples;
+    all of them without it), within one mismatched symbol per 10^5.
+    Window symbols past that are counted apart and printed.  Returns
+    (max SNR difference in dB, differing window symbols, window symbols
+    compared)."""
+    assert len(flat) == len(fused), (len(flat), len(fused))
+    d_snr, d_sym, n_sym, d_past, n_past = 0.0, 0, 0, 0, 0
+    for i, (a, b) in enumerate(zip(flat, fused)):
+        ka = [(h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+              for h in a.hits]
+        kb = [(h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+              for h in b.hits]
+        assert ka == kb, f"classic hits differ: {set(ka) ^ set(kb)}"
+        la = [(h.channel, h.index, h.clkn, h.sym_offset, h.distance)
+              for h in a.le_hits]
+        lb = [(h.channel, h.index, h.clkn, h.sym_offset, h.distance)
+              for h in b.le_hits]
+        assert la == lb, f"LE hits differ: {set(la) ^ set(lb)}"
+        d_snr = max(d_snr, float(np.abs(a.snr_db - b.snr_db).max()))
+        limit = capture_symbols(fe, n_samples, i)
+        pairs = ([(fe.packet_symbols(a, ha), fe.packet_symbols(b, hb),
+                   ha.sym_offset) for ha, hb in zip(a.hits, b.hits)] +
+                 [(fe.le_packet_symbols(a, ha), fe.le_packet_symbols(b, hb),
+                   ha.sym_offset) for ha, hb in zip(a.le_hits, b.le_hits)])
+        for wa, wb, off in pairs:
+            k = max(0, min(wa.size, limit - off))
+            d_sym += int((wa[:k] != wb[:k]).sum())
+            n_sym += k
+            d_past += int((wa[k:] != wb[k:]).sum())
+            n_past += wa.size - k
+    print(f"chains: {d_sym} of {n_sym} window symbols inside the capture "
+          f"differ; past its end (zero padding, signed zeros: torch.atan2 "
+          f"+-pi, atan2_poly 0) {d_past} of {n_past}")
+    assert d_snr <= 1e-3, f"slot SNR differs by {d_snr} dB"
+    assert d_sym <= n_sym * 1e-5, (d_sym, n_sym)
+    return d_snr, d_sym, n_sym
 
 
 def conv_bank_weights(h0, h1, dft_c, dft_s):
@@ -160,6 +338,17 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 def bound(n_bytes: float, n_ops: float, ops_rate: float = FP32_OPS):
     tb, to = n_bytes / HBM_BPS * 1e3, n_ops / ops_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def channelize_ops(C: int, M: int, Q: int) -> float:
+    """Float32 operations per frame that the polyphase DFT channelizer's
+    function needs: the branch FIRs (M complex outputs of Q real taps,
+    4MQ) and the M-point complex DFT, as an FFT at the conventional
+    5 M log2 M where that is fewer than the direct 8CM over the C
+    covered bins.  The (-1)^{cn} rotator is a sign flip.  The kernels
+    compute the DFT directly, as the TPU's MXU does; the bound does
+    not."""
+    return 4 * M * Q + min(8 * C * M, 5 * M * math.log2(M))
 
 
 def _csa_ops(n_planes: int) -> int:
@@ -231,7 +420,10 @@ def kernel_checks(fe, xb):
                   .abs().max().item())
     print(f"pfb_snr: cuDNN conv1d yardstick max |conv - kernel| = "
           f"{err_lib:.3e} over {n} frames")
-    flops = n_frames * (C * M * 8 + 2 * M * Q * 2 + C * 4)
+    print(f"channelizers: {channelize_ops(C, M, Q):.6g} float32 operations "
+          f"per frame (FIR 4MQ = {4 * M * Q}, {M}-point FFT 5 M log2 M = "
+          f"{5 * M * math.log2(M):.6g}; the direct DFT's 8CM = {8 * C * M})")
+    flops = n_frames * (channelize_ops(C, M, Q) + C * 4)
     nbytes = xb.numel() * 4 + 2 * C * n_frames * 4 + C * G * 4
     b_ms, b_by = bound(nbytes, flops)
     rows["pfb_snr"] = dict(
@@ -304,6 +496,44 @@ def kernel_checks(fe, xb):
         plain_ms=time_ms(lambda: detect_kernel.detect_words_plain(*dargs),
                          10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # ---- deinterleave: the flat chain's (2, N) -> (2, D, n_x) copy
+    xp = pfb.deinterleave(xb, D)
+    pxp = pfb.deinterleave_plain(xb, D)
+    n_x = xp.shape[2]
+    lib6 = lambda: xb[:, : n_x * D].reshape(  # noqa: E731
+        2, n_x, D).transpose(1, 2).contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(xp, pxp) and torch.equal(xp, lib6())
+    print(f"deinterleave: xp {tuple(xp.shape)} equal to the plain version "
+          f"and to the reshape-transpose copy (exact required)")
+    b_ms, b_by = bound(2 * xp.numel() * 4, 0)
+    rows["deinterleave"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: pfb.deinterleave(xb, D), 50),
+        plain_ms=time_ms(lambda: pfb.deinterleave_plain(xb, D), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6, 50))
+
+    # ---- pfb_channelize over the branch rows
+    cr, ci = pfb_kernel.pfb_channelize(xp, *bank)
+    qr, qi = pfb_kernel.pfb_channelize_plain(xp, *bank)
+    torch.cuda.synchronize()
+    n5 = cr.shape[1]
+    err_c = max((cr - qr).abs().max().item(), (ci - qi).abs().max().item())
+    err_lib = max((ly[:C, :n5] * sign[:, :n5] - cr).abs().max().item(),
+                  (ly[C:, :n5] * sign[:, :n5] - ci).abs().max().item())
+    print(f"pfb_channelize: y {tuple(cr.shape)} max |kernel - plain| = "
+          f"{err_c:.3e} (tolerance 2e-5); cuDNN conv1d yardstick max "
+          f"|conv - kernel| = {err_lib:.3e}")
+    assert err_c <= 2e-5, err_c
+    flops = n5 * channelize_ops(C, M, Q)
+    b_ms, b_by = bound(xp.numel() * 4 + 2 * C * n5 * 4, flops)
+    rows["pfb_channelize"] = dict(
+        max_abs_err=err_c,
+        ms=time_ms(lambda: pfb_kernel.pfb_channelize(xp, *bank), 50),
+        plain_ms=time_ms(lambda: pfb_kernel.pfb_channelize_plain(xp, *bank),
+                         10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20))
     for name, r in rows.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -311,15 +541,17 @@ def kernel_checks(fe, xb):
     return rows
 
 
-def step_profile(fe, xb, reps: int = 20):
-    """Phase 3b: one block's whole device step (kernels and the torch
-    glue between them) timed with CUDA events, and a torch.profiler
-    window over a few steps: device time by kernel, and the device's
-    busy share of the CUDA-event step time (the profiler's own overhead
-    stretches its window's host clock, so that is not the denominator).
-    Returns {kernel name: its profiled device ms per step}."""
-    ms = time_ms(lambda: fe.device_step(xb), reps)
-    print(f"device step: {ms:.4f} ms per block (CUDA events, {reps} steps)")
+def step_profile(label, step, xb, kernels, reps: int = 20):
+    """Phase 3b: one block's whole device step on one chain (`step`, its
+    kernels and the torch glue between them) timed with CUDA events, and
+    a torch.profiler window over a few steps: device time by kernel, and
+    the device's busy share of the CUDA-event step time (the profiler's
+    own overhead stretches its window's host clock, so that is not the
+    denominator).  Returns {kernel name: its profiled device ms per
+    step}."""
+    ms = time_ms(lambda: step(xb), reps)
+    print(f"{label} step: {ms:.4f} ms per block (CUDA events, {reps} "
+          f"steps)")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n = 5
@@ -328,7 +560,7 @@ def step_profile(fe, xb, reps: int = 20):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            fe.device_step(xb)
+            step(xb)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a host op's device time repeats that of
@@ -339,14 +571,15 @@ def step_profile(fe, xb, reps: int = 20):
     evs.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
     assert busy > 0, "the profiler saw no device time"
-    print(f"profiler: {n} steps, device busy {busy:.4f} ms per step = "
-          f"{100 * busy / ms:.1f}% of the {ms:.4f} ms CUDA-event step "
-          f"(profiled window {wall * 1e3 / n:.3f} ms per step, host clock)")
+    print(f"{label} profiler: {n} steps, device busy {busy:.4f} ms per "
+          f"step = {100 * busy / ms:.1f}% of the {ms:.4f} ms CUDA-event "
+          f"step (profiled window {wall * 1e3 / n:.3f} ms per step, host "
+          f"clock)")
     for e in evs[:12]:
         print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step "
               f"{e.count // n:4d} calls/step  {e.key[:70]}")
     prof_ms = {}
-    for k in KERNELS:
+    for k in kernels:
         name = k.__name__
         t = [e.self_device_time_total for e in evs
              if e.key.startswith(f"{name}_kernel")]
@@ -379,8 +612,9 @@ def main_path(survey, n_blocks: int):
     print(f"main path: {n_in / dt:.6g} samples/s host clock to synchronize "
           f"({dt:.4f} s for {n_in} samples), peak device memory "
           f"{peak / 2 ** 20:.1f} MiB")
-    for name, n in launches.items():
-        assert n == n_blocks, (name, n, n_blocks)
+    for k in KERNELS:
+        want = n_blocks if k in FUSED else 0
+        assert launches[k.__name__] == want, (k.__name__, launches, want)
 
     metrics.reset()
     survey.observations.clear()
@@ -397,8 +631,48 @@ def main_path(survey, n_blocks: int):
     return launches
 
 
+def flat_path(fe, n_blocks: int):
+    """Phase 5: stream_sync (the flat chain, LE on) over a capture with
+    classic and LE advertising packets, counters read around exactly
+    this run; then the same capture through stream() (the fused chain)
+    against it."""
+    x, planted, le_planted = plant_le_capture(fe, n_blocks)
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flat = list(fe.stream_sync(x))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    n_found = check_survey([h for r in flat for h in r.hits], planted)
+    n_le = check_le([h for r in flat for h in r.le_hits], le_planted)
+    n_in = x.shape[0]
+    print(f"flat path: {len(flat)} blocks of {fe.block_slots} slots, "
+          f"{len(planted)} classic and {len(le_planted)} LE advertising "
+          f"packets planted, {n_found} (LAP, channel) pairs and {n_le} LE "
+          f"packets found, {sum(len(r.le_hits) for r in flat)} LE hits in "
+          f"all; launches {launches}")
+    print(f"flat path: {n_in / dt:.6g} samples/s host clock to synchronize "
+          f"({dt:.4f} s for {n_in} samples, the first blocks' warm-up "
+          f"included), peak device memory {peak / 2 ** 20:.1f} MiB")
+    assert len(flat) == n_blocks, len(flat)
+    for k in KERNELS:
+        want = n_blocks if k in FLAT else 0
+        assert launches[k.__name__] == want, (k.__name__, launches, want)
+
+    fused = list(fe.stream(x))
+    d_snr, d_sym, n_sym = compare_chains(fe, flat, fused, x.shape[0])
+    print(f"flat path against stream() (fused chain, LE on): same classic "
+          f"and LE hit keys, slot SNR within {d_snr:.3e} dB, {d_sym} of "
+          f"{n_sym} window symbols differ")
+    return launches
+
+
 def small_reference():
-    """Phase 5: an 8 Msps survey on the card against the plain versions
+    """Phase 6: an 8 Msps survey on the card against the plain versions
     on the CPU."""
     kw = dict(block_slots=8)
     gpu = LapSurvey(8e6, 2441e6, **kw)
@@ -433,15 +707,29 @@ def main() -> int:
 
     survey = LapSurvey(FS, CENTER, block_slots=BLOCK_SLOTS)
     fe = survey.fe
+    fe_le = frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
+                              max_ac_errors=1, enable_le=True)
     x, _ = plant_capture(fe, 1, seed=9)
     xb = fe.to_planes(x[: fe.block_samples])
     rows = kernel_checks(fe, xb)
-    for name, t in step_profile(fe, xb).items():
-        rows[name]["profiler_ms"] = t
-        print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA events, "
-              f"back-to-back wrapper calls), {t:.4f} ms device time "
-              f"(profiler, in the step)")
+    profs = (("fused", step_profile("fused chain (LE off)", fe.fused_step,
+                                    xb, FUSED)),
+             ("flat", step_profile("flat chain (LE on)", fe_le.device_step,
+                                   xb, FLAT)))
+    ms = time_ms(lambda: fe_le.fused_step(xb), 20)
+    print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA events, "
+          f"20 steps)")
+    # detect_words runs on both chains; its row keeps the fused chain's
+    for chain, prof in profs:
+        for name, t in prof.items():
+            rows[name].setdefault("profiler_ms", t)
+            print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA "
+                  f"events, back-to-back wrapper calls), {t:.4f} ms device "
+                  f"time (profiler, in the {chain} step)")
     launches = main_path(survey, N_BLOCKS)
+    flat_launches = flat_path(fe_le, N_BLOCKS)
+    for k in FLAT[:2]:
+        launches[k.__name__] = flat_launches[k.__name__]
     small_reference()
 
     out = []

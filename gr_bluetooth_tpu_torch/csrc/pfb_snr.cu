@@ -6,8 +6,7 @@
 // band-pass stage lives in demod_pack.cu, which reads y anyway and whose
 // 1024-frame window covers the probe's 201-frame band-pass windows.
 //
-//   u[p][r][j]  = sum_q h[qM + r] x_p[(j0 + j)D + qM + r]      (branch FIRs)
-//   y[c][j]     = (-1)^{bin_odd[c] (j0+j)} DFT_M{u[.][j]}_c     (bins c)
+//   u, y        as in pfb_tile.cuh (branch FIRs, DFT, rotator)
 //   oe[c][tile] = sum_j |y[c][j]|^2 over the tile's TF frames
 //
 // x is read as flat (2, N) float32 planes; samples at index >= n_valid
@@ -15,20 +14,20 @@
 // past the block's data, so frames past the data match it.
 //
 // Bound on an H100 SXM (80 Msps, M = 80, C = 80, Q = 7, 86,300 frames):
-// the DFT is 80 x 80 x 8 = 51.2k FP32 FLOP per frame and the FIRs 2.2k,
-// about 4.6 GFLOP per block, 69 us at 67 TFLOP/s, against about 83 MB of
-// necessary traffic (27.6 MB of x in, 55 MB of y out), 25 us at
-// 3.35 TB/s: FP32-compute bound.  This first version does nothing about
-// that beyond keeping x, u and the y tile in shared memory: one thread
-// owns one channel row and JPT frames of a tile, so each DFT coefficient
-// it loads feeds 4 x JPT FMAs.  TF divides the 1250-frame slot, so each
-// tile's energy sum belongs to exactly one slot.
+// the function needs the FIRs' 2,240 FP32 FLOP per frame, an 80-point
+// FFT (5 M log2 M = 2,529 at the conventional count) and 320 for the
+// energies, 0.44 GFLOP per block, 7 us at 67 TFLOP/s, against about
+// 83 MB of necessary traffic (27.6 MB of x in, 55 MB of y out), 25 us at
+// 3.35 TB/s: bound by bytes.  This first version computes the DFT
+// directly (80 x 80 x 8 = 51.2k FLOP per frame, 66 us at the FP32 peak,
+// as the TPU kernel does on its MXU) and does nothing more than keep x,
+// u and the y tile in shared memory: one thread owns one channel row and
+// JPT frames of a tile (pfb_tile.cuh).  TF divides the 1250-frame slot,
+// so each tile's energy sum belongs to exactly one slot.
 
 #include <cuda_runtime.h>
 
-#define TF 50       // output frames per block (divides slot_ch = 1250)
-#define JPT 10      // frames per thread in the DFT
-#define JG (TF / JPT)
+#include "pfb_tile.cuh"
 
 __global__ void pfb_snr_kernel(const float* __restrict__ x,
                                long long n_valid, long long plane_stride,
@@ -68,55 +67,22 @@ __global__ void pfb_snr_kernel(const float* __restrict__ x,
     }
     __syncthreads();
 
-    // branch FIRs: branch r < D uses h0 at frame offsets 2q, branch
-    // r = D + d uses h1 at frame offsets 2q + 1
-    for (int i = threadIdx.x; i < 2 * M * TF; i += blockDim.x) {
-        int j = i % TF;
-        int m = (i / TF) % M;
-        int p = i / (TF * M);
-        const float* xp = xs + p * win * D;
-        float acc = 0.f;
-        if (m < D) {
-            for (int q = 0; q < Q; ++q)
-                acc += xp[(j + 2 * q) * D + m] * h0[q * D + m];
-        } else {
-            int d = m - D;
-            for (int q = 0; q < Q; ++q)
-                acc += xp[(j + 2 * q + 1) * D + d] * h1[q * D + d];
-        }
-        us[(p * M + m) * TF + j] = acc;
-    }
+    pfb_fir_tile(xs, us, h0, h1, Q, D, win);
     __syncthreads();
 
-    // M-point DFT onto the C bins; thread (c, jg) owns frames jg + JG*i
+    // thread (c, jg) owns frames jg + JG*i of bin c
     for (int o = threadIdx.x; o < C * JG; o += blockDim.x) {
         int c = o % C;
         int jg = o / C;
         float ar[JPT], ai[JPT];
-#pragma unroll
-        for (int i = 0; i < JPT; ++i) { ar[i] = 0.f; ai[i] = 0.f; }
-        for (int m = 0; m < M; ++m) {
-            float cm = __ldg(dft_c + m * C + c);
-            float sn = __ldg(dft_s + m * C + c);
-            const float* ur = us + m * TF + jg;
-            const float* ui = us + (M + m) * TF + jg;
-#pragma unroll
-            for (int i = 0; i < JPT; ++i) {
-                float r = ur[i * JG], im = ui[i * JG];
-                ar[i] += r * cm + im * sn;
-                ai[i] += im * cm - r * sn;
-            }
-        }
-        bool odd_bin = bin_odd[c] != 0.f;
+        pfb_dft_bin(us, dft_c, dft_s, bin_odd, M, C, c, jg, j0, ar, ai);
         float e = 0.f;
 #pragma unroll
         for (int i = 0; i < JPT; ++i) {
             int j = jg + i * JG;
-            float vr = ar[i], vi = ai[i];
-            if (odd_bin && ((j0 + j) & 1)) { vr = -vr; vi = -vi; }
-            ys[c * TF + j] = vr;
-            ys[(C + c) * TF + j] = vi;
-            e += vr * vr + vi * vi;
+            ys[c * TF + j] = ar[i];
+            ys[(C + c) * TF + j] = ai[i];
+            e += ar[i] * ar[i] + ai[i] * ai[i];
         }
         op[jg * C + c] = e;
     }

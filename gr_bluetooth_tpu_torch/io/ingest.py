@@ -121,9 +121,11 @@ class PipelinedIngest:
         return h.to(self.fe.device, non_blocking=True)
 
     def step(self, carry, new):
-        """(device carry, device wire chunk) -> (next carry, outputs)."""
+        """(device carry, device wire chunk) -> (next carry, outputs of
+        the fused chain, FrontEnd.fused_step), as the JAX package's
+        _pipelined_step stages the block for its fused kernels."""
         xb = torch.cat([carry, wire_decode(new, self.wire)], 1)
-        outs = self.fe.device_step(xb)
+        outs = self.fe.fused_step(xb)
         return xb[:, -self.fe.overlap_samples:], outs
 
     def _pack(self, outs):

@@ -7,22 +7,35 @@ are fully decodable; the dense per-offset detection planes are reduced on
 the device to a fixed-size hit table (channel, offset, LAP, errors) plus
 per-hit symbol windows, so a block's host traffic is a few hundred KB.
 
-Per-block device work (_device_step):
+Two chains compute one block's step, as in the JAX package's
+_device_step, which takes the first for flat (2, N) planes and the
+second for the staged layout that stream() builds:
 
-    pfb_snr      channelize (polyphase FIR + DFT + rotator) and per-tile
-                 on-energies                        [CUDA, ops/pfb_kernel]
-    demod_pack   discriminator, 16-phase timing, slicer, word pack, and
-                 the probe band-pass energies       [CUDA, ops/demod_kernel]
-    slot SNR     segment sums of the partials       [torch, ops/snr]
-    detect_words packed access-code detection       [CUDA, ops/detect_kernel]
+  flat (_device_step: device_step, process_block, stream_sync)
+    deinterleave   (2, N) -> (2, D, n_x) branch rows [CUDA, ops/pfb]
+    pfb_channelize polyphase FIR + DFT + rotator     [CUDA, ops/pfb_kernel]
+    stream SNR     slot on/off energies from y       [torch, ops/snr]
+    demod          discriminator, 16-phase timing, slicer -> dense bits
+                   -> packed words                   [torch, ops/demod]
+  fused (_fused_step: stream, through io/ingest.py)
+    pfb_snr        channelize and per-tile on-energies [CUDA, ops/pfb_kernel]
+    demod_pack     discriminator, timing, slicer, word pack, probe
+                   energies                          [CUDA, ops/demod_kernel]
+    slot SNR       segment sums of the partials      [torch, ops/snr]
+
+and both end in the same packed tail (_packed_tail):
+
+    detect_words   packed access-code detection      [CUDA, ops/detect_kernel]
     squelch AND on word planes, first-k hit extraction, bit-aligned window
-    gather, LAP and error count from each window    [torch, below]
+    gather, LAP and error count from each window     [torch, below]
+    LE (enable_le): the LE rows' dense bits, the LE detector, the dense
+    squelch gate, first-k extraction, LE windows     [torch, ops/detect]
 
 Nothing on the step reads a value back to the host.  Hits within the
 first B slots are reported; the stream advances B slots.
 
-Odd-integer rates, off-grid rates and the LE detector are not ported yet
-(ROADMAP.md) and raise NotImplementedError.
+Odd-integer rates and off-grid rates are not ported yet (ROADMAP.md) and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -31,13 +44,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT, SYMBOLS_PER_SLOT)
-from ..ops import demod_kernel, detect_kernel, pfb, pfb_kernel, snr
+from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT,
+                         SYMBOLS_LE_PREAMBLE_AA, SYMBOLS_PER_SLOT)
+from ..core.le_tables import freq2index
+from ..ops import (demod, demod_kernel, detect, detect_kernel, pfb,
+                   pfb_kernel, snr)
 from ..ops.detect_kernel import ac_errors, popcount, u32_to_i32
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 
-__all__ = ["FrontEnd", "Hit", "BlockResult"]
+__all__ = ["FrontEnd", "Hit", "LeHit", "BlockResult"]
 
 log = get_logger("frontend")
 
@@ -60,12 +76,25 @@ class Hit:
     win_row: int          # row in BlockResult.windows
 
 
+@dataclass(frozen=True)
+class LeHit:
+    """One LE access-address candidate."""
+    channel: int          # BR channel grid number (freq = 2402 + ch MHz)
+    freq: float
+    index: int            # LE channel index 0..39
+    clkn: int
+    sym_offset: int
+    distance: int
+    snr_db: float
+    win_row: int          # row in BlockResult.le_windows
+
+
 @dataclass
 class BlockResult:
     slot_base: int              # clkn of the block's first slot
     snr_db: np.ndarray          # (S, C) per-slot SNR
     hits: list                  # list[Hit], ordered by offset
-    le_hits: list               # LE candidates: empty until LE is ported
+    le_hits: list               # list[LeHit], ordered by offset
     windows: np.ndarray         # (K, WIN_SYMBOLS // 32 + 1) int32 windows
     le_windows: np.ndarray      # (K_le, LE_WIN_SYMBOLS // 32 + 1) int32
     n_slots: int                # slots advanced by this block
@@ -76,7 +105,8 @@ class FrontEnd:
                  squelch_threshold: float = DEFAULT_SNR_DB,
                  block_slots: int = 16, max_ac_errors: int = 6,
                  use_squelch: bool = True, enable_le: bool = False,
-                 max_hits: int | None = None, device=None):
+                 max_hits: int | None = None,
+                 max_le_hits: int | None = None, device=None):
         spsf = sample_rate / 1e6
         if not (abs(spsf - round(spsf)) < 1e-9 and round(spsf) >= 2):
             raise NotImplementedError(
@@ -88,10 +118,6 @@ class FrontEnd:
                 f"{sample_rate / 1e6:g} Msps is an odd rate: the strided "
                 "conv bank is not ported yet (ROADMAP.md, queue 1: odd-rate "
                 "and resampled front ends)")
-        if enable_le:
-            raise NotImplementedError(
-                "the LE access-address detector is not ported yet "
-                "(ROADMAP.md, queue 1: LE branch of the step)")
         self.device = resolve_device(device)
         self.input_rate = sample_rate
         self.bank = b = pfb.make_pfb_bank(sample_rate, center_freq)
@@ -111,6 +137,20 @@ class FrontEnd:
         self.delay_sym = int(round(((b.ntaps - 1) / 2 + b.decim) / b.sps))
         # 2 hits/slot + margin; overflow is detected and logged
         self.max_hits = max_hits or max(128, 2 * block_slots + 64)
+        # LE rows: bank channels on the LE 2 MHz grid, (row, BR channel,
+        # LE index)
+        self.le_rows = [(i, ch, freq2index(2402e6 + ch * 1e6))
+                        for i, ch in enumerate(b.channels)
+                        if freq2index(2402e6 + ch * 1e6) >= 0]
+        # LE hit-table capacity: data-row detection is exact-match, which
+        # random symbols pass at ~2^-9 per offset, but only busy rows and
+        # slots survive the squelch; capped at 512, overflow is counted
+        # and logged (assemble_block)
+        n_data_rows = sum(1 for r in self.le_rows if r[2] < 37) or 1
+        fp_budget = n_data_rows * self.n_sym / 512.0
+        self.max_le_hits = max_le_hits or max(
+            64, 4 * block_slots, min(int(4 * fp_budget) + 64, 512))
+        self.enable_le = bool(enable_le and self.le_rows)
 
         Q = b.h0.shape[0]
         n_y = self.block_samples // b.decim - 2 * Q   # true output frames
@@ -120,13 +160,19 @@ class FrontEnd:
             kappa=sc.kappa, demod_gain=b.demod_gain,
             max_ac_errors=max_ac_errors, delay_sym=self.delay_sym,
             squelch=(float(squelch_threshold) if use_squelch else None),
-            max_hits=self.max_hits)
+            max_hits=self.max_hits, max_le_hits=self.max_le_hits)
         s0, ma = _word_slot_consts(-(-n_off // 32), self.delay_sym)
-        self.consts = consts_to_device(dict(
+        consts = dict(
             h0=b.h0, h1=b.h1, dft_c=b.dft_c, dft_s=b.dft_s,
             bin_odd=b.bin_odd, probe_re=sc.taps_re, probe_im=sc.taps_im,
-            ac_masks=detect_kernel.ac_masks(), word_s0=s0, word_mask_a=ma),
-            self.device)
+            ac_masks=detect_kernel.ac_masks(), word_s0=s0, word_mask_a=ma)
+        if self.enable_le:
+            white, aa_on, max_dist = detect.le_row_consts(
+                [r[2] for r in self.le_rows])
+            consts.update(le_rows=np.array([r[0] for r in self.le_rows]),
+                          le_white=white, le_aa_on=aa_on,
+                          le_max_dist=max_dist, **detect.le_table_consts())
+        self.consts = consts_to_device(consts, self.device)
         self._ingests: dict = {}        # wire -> PipelinedIngest
 
     # ------------------------------------------------------------ device
@@ -145,11 +191,16 @@ class FrontEnd:
             self.device)
 
     def device_step(self, x):
-        """The device pipeline on one block of wideband IQ (complex (N,)
-        or (2, N) float32 planes, host or device).  Returns device tensors
-        (snr_db, n_hits, hit_tab, windows, None, None, None), the JAX
-        package's 7-tuple with the LE outputs absent."""
+        """The flat chain on one block of wideband IQ (complex (N,) or
+        (2, N) float32 planes, host or device).  Returns device tensors
+        (snr_db, n_hits, hit_tab, windows, n_le, le_tab, le_windows), the
+        JAX package's 7-tuple; the LE three are None with LE off."""
         return _device_step(self.to_planes(x), **self.consts, **self.statics)
+
+    def fused_step(self, x):
+        """The fused chain on one block, same input and outputs as
+        device_step (stream() runs it)."""
+        return _fused_step(self.to_planes(x), **self.consts, **self.statics)
 
     # ------------------------------------------------------------ host
 
@@ -205,9 +256,40 @@ class FrontEnd:
                             clkn=(slot_base + slot) & 0x7FFFFFF,
                             sym_offset=t, lap=lap, errors=err,
                             snr_db=s_db, win_row=int(k)))
-        le_windows = np.zeros((0, LE_WIN_SYMBOLS // 32 + 1), np.int32)
+
+        le_hits: list[LeHit] = []
+        if n_le is not None:
+            le_tab = np.asarray(le_tab)
+            le_windows = np.asarray(le_windows)
+            raw_le = int(n_le)
+            n_le = min(raw_le, le_tab.shape[0])
+            if raw_le > le_tab.shape[0]:
+                dropped = raw_le - le_tab.shape[0]
+                metrics.count("le_hits_dropped", dropped)
+                log.warning("LE hit table overflow: %d detections > %d "
+                            "rows; %d dropped", raw_le, le_tab.shape[0],
+                            dropped)
+            le_last: dict[int, int] = {}
+            for k in np.argsort(le_tab[:n_le, 1], kind="stable"):
+                r, t, dist = (int(v) for v in le_tab[k])
+                if t >= limit:
+                    continue
+                if t < le_last.get(r, 0):
+                    continue
+                row, ch, index = self.le_rows[r]
+                slot = (t + self.delay_sym) // SYMBOLS_PER_SLOT
+                s_db = float(snr_db[slot, row]) if slot < snr_db.shape[0] \
+                    else 0.0
+                le_last[r] = t + SYMBOLS_LE_PREAMBLE_AA
+                le_hits.append(LeHit(channel=ch, freq=2402e6 + ch * 1e6,
+                                     index=index,
+                                     clkn=(slot_base + slot) & 0x7FFFFFF,
+                                     sym_offset=t, distance=dist,
+                                     snr_db=s_db, win_row=int(k)))
+        else:
+            le_windows = np.zeros((0, LE_WIN_SYMBOLS // 32 + 1), np.int32)
         return BlockResult(slot_base=slot_base, snr_db=snr_db, hits=hits,
-                           le_hits=[], windows=windows,
+                           le_hits=le_hits, windows=windows,
                            le_windows=le_windows, n_slots=self.block_slots)
 
     @staticmethod
@@ -239,14 +321,19 @@ class FrontEnd:
                           for h in res.hits], dtype=np.int64)
         return sym, sizes
 
+    def le_packet_symbols(self, res: BlockResult, hit: LeHit) -> np.ndarray:
+        """Symbol window for an LE hit."""
+        n = min(LE_WIN_SYMBOLS, self.n_sym - hit.sym_offset)
+        return self._unpack_window(res.le_windows[hit.win_row], n)
+
     def stream(self, samples, start_clkn: int = 0, wire: str = "f32"):
         """Iterate BlockResults over a long capture (host numpy input).
 
-        The production pipelined path (io.ingest): the overlap-save carry
-        lives on the device, each block's H2D copy carries only
-        step_samples of new data in the given wire format, and later
-        blocks are launched before earlier blocks' outputs are read.
-        Block placement and outputs equal stream_sync's."""
+        The production pipelined path (io.ingest) through the fused
+        chain: the overlap-save carry lives on the device, each block's
+        H2D copy carries only step_samples of new data in the given wire
+        format, and later blocks are launched before earlier blocks'
+        outputs are read.  Block placement equals stream_sync's."""
         from ..io.ingest import PipelinedIngest, wire_chunks
         from ..utils.metrics import metrics
 
@@ -258,8 +345,9 @@ class FrontEnd:
         return ingest.run(chunks, start_clkn, initial_carry=carry)
 
     def stream_sync(self, samples, start_clkn: int = 0):
-        """Synchronous block loop (one blocking copy + step + fetch per
-        block) — the parity reference for stream()."""
+        """Synchronous block loop through the flat chain (one blocking
+        copy + step + fetch per block) — the parity reference for
+        stream()."""
         samples = np.asarray(samples)
         if np.iscomplexobj(samples):
             samples = np.stack([samples.real, samples.imag]).astype(np.float32)
@@ -314,6 +402,47 @@ def _extract_hits_packed(hitw, max_hits: int):
     valid = r < count
     nbits = W * 32
     return count, idx // nbits, idx % nbits, valid
+
+
+def _extract_hits(mask, max_hits: int, payload_cols):
+    """Dense (C, n) mask -> the first max_hits set elements in
+    channel-major order, with no host sync: an inclusive prefix sum over
+    the flat mask, and searchsorted places each rank r.
+
+    Returns (count, tab, chan, off, valid): tab is (max_hits,
+    2 + len(payload_cols)) int32 rows [chan, offset, *payload], -1 on
+    rows r >= count; count may exceed max_hits."""
+    C, n = mask.shape
+    flat = mask.reshape(-1).to(torch.int64)
+    cum = torch.cumsum(flat, 0)
+    count = cum[-1]
+    r = torch.arange(max_hits, device=mask.device)
+    idx = torch.searchsorted(cum, r, right=True).clamp(max=flat.numel() - 1)
+    valid = r < count
+    chan, off = idx // n, idx % n
+    cols = [chan, off] + [p.reshape(-1)[idx] for p in payload_cols]
+    tab = torch.stack([c.to(torch.int32) for c in cols], 1)
+    tab = torch.where(valid[:, None], tab, -1)
+    return count.to(torch.int32), tab, chan, off, valid
+
+
+def _squelch_gate(snr_db, n: int, delay_sym: int, squelch: float):
+    """(S, C) slot SNR -> (C, n) per-offset boolean gate: offset t sits in
+    slot (t + delay_sym) // 625, slots past S read as slot S-1."""
+    S, C = snr_db.shape
+    rep = (snr_db.T >= squelch).repeat_interleave(SYMBOLS_PER_SLOT, 1)
+    pad = max(0, delay_sym + n - S * SYMBOLS_PER_SLOT)
+    if pad:
+        rep = torch.cat([rep, rep[:, -1:].expand(C, pad)], 1)
+    return rep[:, delay_sym: delay_sym + n]
+
+
+def _unpack_word_rows(words, rows, n_sym: int):
+    """Dense 0/1 int64 symbol rows for the selected rows of a packed word
+    plane: (C, W) int32, (R,) -> (R, n_sym)."""
+    sel = words[rows].to(torch.int64) & _M32
+    b = (sel[:, :, None] >> torch.arange(32, device=words.device)) & 1
+    return b.reshape(sel.shape[0], -1)[:, :n_sym]
 
 
 def _squelch_gate_words(snr_db, word_s0, word_mask_a, squelch: float):
@@ -384,12 +513,27 @@ def step_geometry(n_samples: int, Q: int, decim: int, n_sym: int,
 
 
 def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
-                 probe_im, ac_masks, word_s0, word_mask_a, decim, n_sym,
-                 n_y, slot_ch, kappa, demod_gain, max_ac_errors, delay_sym,
-                 squelch, max_hits):
-    """(2, N) float32 block on the device -> (snr_db, n_hits, tab,
-    windows, None, None, None), as gr_bluetooth_tpu's _device_step on its
-    staged Pallas branch."""
+                 probe_im, decim, n_sym, n_y, slot_ch, kappa, demod_gain,
+                 **tail):
+    """The flat chain: (2, N) float32 block on the device -> (snr_db,
+    n_hits, tab, windows, n_le, le_tab, le_windows), as
+    gr_bluetooth_tpu's _device_step on flat planes with use_pallas."""
+    n = x_ri.shape[1] // decim - 2 * h0.shape[0]
+    if n != n_y:
+        raise ValueError(f"block of {x_ri.shape[1]} samples gives {n} "
+                         f"frames, the front end expects {n_y}")
+    yr, yi = pfb._pfb_impl(x_ri, h0, h1, dft_c, dft_s, bin_odd)
+    snr_db, _, _ = snr.stream_snr(yr, yi, probe_re, probe_im,
+                                  slot_ch=slot_ch, kappa=kappa)
+    _, bits = demod.demod_and_slice(yr[:-1], yi[:-1], demod_gain, 2.0, n_sym)
+    words = detect_kernel.pack_bits_words(bits)
+    return _packed_tail(words, bits, snr_db, n_sym=n_sym, **tail)
+
+
+def _fused_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re, probe_im,
+                decim, n_sym, n_y, slot_ch, kappa, demod_gain, **tail):
+    """The fused chain: same input and outputs as _device_step, as
+    gr_bluetooth_tpu's _device_step on its staged Pallas branch."""
     n, n_data, S, n_k, n_frames = step_geometry(
         x_ri.shape[1], h0.shape[0], decim, n_sym, slot_ch,
         probe_re.shape[0])
@@ -403,8 +547,17 @@ def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
                                         probe_im, n_k, n_data)
     snr_db = snr.assemble_slot_snr(oe, pe, S=S, slot_ch=slot_ch,
                                    kappa=kappa, tile=pfb_kernel.TF)
-    words = words[:-1]                                 # drop the probe row
+    # drop the probe row
+    return _packed_tail(words[:-1], None, snr_db, n_sym=n_sym, **tail)
 
+
+def _packed_tail(words, bits, snr_db, *, ac_masks, word_s0, word_mask_a,
+                 n_sym, max_ac_errors, delay_sym, squelch, max_hits,
+                 max_le_hits, le_rows=None, le_white=None, le_aa_on=None,
+                 le_max_dist=None, **le_tables):
+    """Both chains' tail (gr_bluetooth_tpu/models/frontend.py:750-808):
+    (C, W) packed words, the dense (C, n_sym) bits where the chain has
+    them (else None), (S, C) slot SNR -> the step's 7-tuple."""
     hitw, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
                                          max_ac_errors, ac_masks)
     if squelch is not None:
@@ -422,4 +575,20 @@ def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
                        torch.where(valid, off, neg),
                        torch.where(valid, lap, neg),
                        torch.where(valid, err, neg)], 1).to(torch.int32)
-    return snr_db, n_hits.to(torch.int32), tab, windows, None, None, None
+    if le_rows is None:
+        return snr_db, n_hits.to(torch.int32), tab, windows, None, None, None
+
+    le_bits = (_unpack_word_rows(words, le_rows, n_sym) if bits is None
+               else bits[le_rows])
+    le_hits, le_dist = detect.le_detect_batch(le_bits, le_white, le_aa_on,
+                                              le_max_dist, **le_tables)
+    if squelch is not None:
+        le_hits = le_hits & _squelch_gate(snr_db[:, le_rows],
+                                          le_hits.shape[1], delay_sym,
+                                          squelch)
+    n_le, le_tab, le_chan, le_off, le_valid = _extract_hits(
+        le_hits, max_le_hits, [le_dist])
+    le_windows = _gather_windows(words, le_rows[le_chan], le_off, le_valid,
+                                 LE_WIN_SYMBOLS)
+    return (snr_db, n_hits.to(torch.int32), tab, windows, n_le, le_tab,
+            le_windows)

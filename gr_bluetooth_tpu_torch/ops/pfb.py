@@ -8,21 +8,29 @@ out).  Because D = M/2 the rotator collapses to (-1)^{c n}: a sign flip
 on odd bins at odd frames.  The prototype is the reference's Hann
 low-pass (500 kHz cutoff / 300 kHz transition, multi_block.cc:62-69).
 
-Copy of the NumPy bank constructor in gr_bluetooth_tpu/ops/pfb.py; the
-channelizer itself lives in ops/pfb_kernel.py.
+The bank constructor is a copy of gr_bluetooth_tpu/ops/pfb.py's.  The
+flat-input channelizer is deinterleave (the port of the TPU kernel
+gr_bluetooth_tpu/ops/pfb.py:_deinterleave, CUDA kernel
+csrc/deinterleave.cu) followed by ops/pfb_kernel.py:pfb_channelize;
+pfb_channelize below is the public entry point over both.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..constants import (BASE_FREQUENCY, CHANNEL_FILTER_CUTOFF,
                          CHANNEL_FILTER_TRANSITION, CHANNEL_WIDTH)
 from .channelizer import select_channels
+from ..utils import cuda_build
+from . import pfb_kernel
 from .filters import lowpass_taps
 
-__all__ = ["PfbBank", "make_pfb_bank"]
+__all__ = ["PfbBank", "deinterleave", "deinterleave_plain", "make_pfb_bank",
+           "pfb_channelize"]
 
 
 @dataclass(frozen=True)
@@ -94,3 +102,74 @@ def make_pfb_bank(fs: float, center_freq: float,
     demod_gain = 2.0 / (np.pi / 2.0)                   # ch_sps / (pi/2)
     return PfbBank(fs, center_freq, sps, D, 2.0, channels, ntaps,
                    h0, h1, dft_c, dft_s, bin_odd, float(demod_gain))
+
+
+def deinterleave_plain(x, D: int):
+    """Plain PyTorch version of deinterleave (same arguments and
+    results), as D strided slices of the planes."""
+    n_x = x.shape[1] // D
+    return torch.stack([x[:, d: n_x * D: D] for d in range(D)], 1)
+
+
+def _deint_launcher():
+    fn = cuda_build.load("deinterleave").deinterleave_launch
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, L, I, I, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def deinterleave(x, D: int):
+    """(2, N) float32 planes -> (2, D, n_x) float32, n_x = N // D:
+    xp[p, d, j] = x[p, j*D + d] (samples past n_x*D are dropped).  A CPU
+    tensor runs the plain version; a CUDA tensor launches
+    csrc/deinterleave.cu (counted in deinterleave.launches)."""
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[0] != 2:
+        raise TypeError(f"deinterleave: x must be (2, N) float32, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if D <= 0 or x.shape[1] < D:
+        raise ValueError(f"deinterleave: need 0 < D <= N, got D={D}, "
+                         f"N={x.shape[1]}")
+    if x.device.type == "cpu":
+        return deinterleave_plain(x, D)
+    if x.device.type != "cuda":
+        raise ValueError(f"deinterleave: unsupported device {x.device}")
+    x = x.contiguous()
+    n_x = x.shape[1] // D
+    out = torch.empty((2, D, n_x), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _deint_launcher()(x.data_ptr(), x.shape[1], n_x, D, out.data_ptr(),
+                           stream)
+    cuda_build.check(rc, "deinterleave")
+    deinterleave.launches += 1
+    return out
+
+
+deinterleave.launches = 0
+
+
+def _pfb_impl(x_ri, h0, h1, dft_c, dft_s, bin_odd):
+    """(2, N) float32 planes on a device -> (yr, yi) (C, n) channel
+    streams, n = N // D - 2Q: deinterleave, then pfb_channelize."""
+    D = h0.shape[1]
+    return pfb_kernel.pfb_channelize(deinterleave(x_ri, D), h0, h1, dft_c,
+                                     dft_s, bin_odd)
+
+
+def pfb_channelize(x, bank: PfbBank):
+    """x: complex (N,) or (2, N) float32 planes, numpy or a tensor.
+    Returns (yr, yi) float32 (C + 1, n) decimated channel streams (the
+    probe row last) on x's device (the CPU for numpy input)."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if np.iscomplexobj(x):
+            x = np.stack([x.real, x.imag])
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    elif x.is_complex():
+        x = torch.stack([x.real, x.imag])
+    x = x.to(torch.float32)
+    consts = (torch.from_numpy(np.array(a, copy=True)).to(x.device)
+              for a in (bank.h0, bank.h1, bank.dft_c, bank.dft_s,
+                        bank.bin_odd))
+    return _pfb_impl(x, *consts)

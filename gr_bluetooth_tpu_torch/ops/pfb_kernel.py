@@ -1,19 +1,28 @@
-"""pfb_snr: polyphase DFT channelizer + per-tile on-channel energies.
+"""The polyphase DFT channelizer kernels.
 
-The first stage of the port's version of the TPU megakernel
+pfb_snr (channelizer + per-tile on-channel energies over flat planes) is
+the first stage of the port's version of the TPU megakernel
 gr_bluetooth_tpu/ops/pfb_kernel.py:pfb_channelize_snr_demod_fused; its
 second stage is ops/demod_kernel.py:demod_pack.  The TPU fuses both to
 keep the y streams out of HBM; here y makes one round trip through
 device memory (about 110 MB per full-band block, some 33 us on an
 H100), which leaves each kernel small enough for shared memory.
 
-CUDA kernel: csrc/pfb_snr.cu (see its note for the bound).  The plain
-PyTorch version below computes the same function and runs for tensors
-on the CPU; it is also the kernel's yardstick on the card.
-
 Frame j of the output covers input samples [jD, jD + 2QD) of the flat
 (2, N) planes; samples past n_x * D (n_x = N // D) read as zero, as the
 TPU's staged layout holds them, so frames past the data match it.
+
+pfb_channelize (channelizer only, over ops/pfb.py:deinterleave's
+(2, D, n_x) branch rows) replaces the TPU kernel
+gr_bluetooth_tpu/ops/pfb_kernel.py:pfb_channelize_fused in its flat-input
+mode: (C, n) streams with n = n_x - 2Q, the output of
+gr_bluetooth_tpu/ops/pfb.py:_pfb_impl for flat planes.
+
+CUDA kernels: csrc/pfb_snr.cu and csrc/pfb_channelize.cu, which share
+their FIR + DFT body (csrc/pfb_tile.cuh; see the sources' notes for the
+bounds).  The plain PyTorch versions below compute the same functions
+and run for tensors on the CPU; they are also the kernels' yardsticks on
+the card.
 """
 from __future__ import annotations
 
@@ -23,53 +32,46 @@ import torch
 
 from ..utils import cuda_build
 
-__all__ = ["TF", "pfb_snr", "pfb_snr_plain"]
+__all__ = ["TF", "pfb_channelize", "pfb_channelize_plain", "pfb_snr",
+           "pfb_snr_plain"]
 
 TF = 50            # frames per tile (csrc/pfb_snr.cu TF); divides slot_ch
 
 
-def _check(x, h0, h1, dft_c, dft_s, bin_odd, n_frames):
+def _check_bank(what, x, h0, h1, dft_c, dft_s, bin_odd):
     for name, t in (("x", x), ("h0", h0), ("h1", h1), ("dft_c", dft_c),
                     ("dft_s", dft_s), ("bin_odd", bin_odd)):
         if t.dtype != torch.float32:
-            raise TypeError(f"pfb_snr: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if t.device != x.device:
-            raise ValueError(f"pfb_snr: {name} is on {t.device}, x on "
+            raise ValueError(f"{what}: {name} is on {t.device}, x on "
                              f"{x.device}")
     Q, D = h0.shape
-    if x.ndim != 2 or x.shape[0] != 2:
-        raise ValueError(f"pfb_snr: x must be (2, N), got {tuple(x.shape)}")
     if h1.shape != (Q, D) or dft_c.shape[0] != 2 * D or \
             dft_s.shape != dft_c.shape or bin_odd.shape != dft_c.shape[1:]:
-        raise ValueError("pfb_snr: inconsistent bank shapes")
+        raise ValueError(f"{what}: inconsistent bank shapes")
+
+
+def _check(x, h0, h1, dft_c, dft_s, bin_odd, n_frames):
+    _check_bank("pfb_snr", x, h0, h1, dft_c, dft_s, bin_odd)
+    if x.ndim != 2 or x.shape[0] != 2:
+        raise ValueError(f"pfb_snr: x must be (2, N), got {tuple(x.shape)}")
     if n_frames <= 0 or n_frames % TF:
         raise ValueError(f"pfb_snr: n_frames must be a positive multiple of "
                          f"{TF}, got {n_frames}")
 
 
 def pfb_snr_plain(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
-    """Plain PyTorch version of pfb_snr (same arguments and results)."""
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    """Plain PyTorch version of pfb_snr (same arguments and results):
+    pfb_channelize_plain over the branch rows of the flat planes, zero
+    frames past the data, then the per-tile energies."""
     Q, D = h0.shape
     n_x = x.shape[1] // D
-    need = n_frames + 2 * Q - 1
-    xv = x[:, : n_x * D].reshape(2, n_x, D)
-    if need > n_x:
-        xv = torch.nn.functional.pad(xv, (0, 0, 0, need - n_x))
-    v0 = torch.zeros((2, n_frames, D), dtype=torch.float32, device=x.device)
-    v1 = torch.zeros_like(v0)
-    for q in range(Q):
-        v0 = v0 + xv[:, 2 * q: 2 * q + n_frames] * h0[q]
-        v1 = v1 + xv[:, 2 * q + 1: 2 * q + 1 + n_frames] * h1[q]
-    u = torch.cat([v0, v1], dim=2)                      # (2, F, M)
-    yr = (u[0] @ dft_c + u[1] @ dft_s).T                # (C, F)
-    yi = (u[1] @ dft_c - u[0] @ dft_s).T
-    odd = (torch.arange(n_frames, device=x.device) & 1).to(torch.float32)
-    sign = 1.0 - 2.0 * (bin_odd[:, None] * odd[None, :])
-    yr = (yr * sign).contiguous()
-    yi = (yi * sign).contiguous()
+    xp = x[:, : n_x * D].reshape(2, n_x, D).transpose(1, 2)
+    # n_frames outputs read n_frames + 2Q - 1 input frames
+    xp = torch.nn.functional.pad(xp, (0, max(0, n_frames + 2 * Q - n_x)))
+    yr, yi = pfb_channelize_plain(xp[:, :, : n_frames + 2 * Q], h0, h1,
+                                  dft_c, dft_s, bin_odd)
     C = yr.shape[0]
     oe = (yr * yr + yi * yi).reshape(C, n_frames // TF, TF).sum(-1)
     return yr, yi, oe
@@ -121,3 +123,70 @@ def pfb_snr(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
 
 
 pfb_snr.launches = 0
+
+
+def pfb_channelize_plain(xp, h0, h1, dft_c, dft_s, bin_odd):
+    """Plain PyTorch version of pfb_channelize (same arguments and
+    results): gr_bluetooth_tpu/ops/pfb.py:_pfb_impl's flat formulation,
+    Q shifted multiply-adds along frames, then the DFT as matmuls."""
+    if xp.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    Q, D = h0.shape
+    n = xp.shape[2] - 2 * Q
+    v0 = torch.zeros((2, D, n), dtype=torch.float32, device=xp.device)
+    v1 = torch.zeros_like(v0)
+    for q in range(Q):
+        v0 = v0 + xp[:, :, 2 * q: 2 * q + n] * h0[q][None, :, None]
+        v1 = v1 + xp[:, :, 2 * q + 1: 2 * q + 1 + n] * h1[q][None, :, None]
+    u = torch.cat([v0, v1], dim=1)                     # (2, M, n)
+    yr = dft_c.T @ u[0] + dft_s.T @ u[1]               # (C, n)
+    yi = dft_c.T @ u[1] - dft_s.T @ u[0]
+    odd = (torch.arange(n, device=xp.device) & 1).to(torch.float32)
+    sign = 1.0 - 2.0 * (bin_odd[:, None] * odd[None, :])
+    return (yr * sign).contiguous(), (yi * sign).contiguous()
+
+
+def _channelize_launcher():
+    fn = cuda_build.load("pfb_channelize").pfb_channelize_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, P, P, P, P, P, I, I, I, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pfb_channelize(xp, h0, h1, dft_c, dft_s, bin_odd):
+    """Channelize deinterleaved planes: xp (2, D, n_x) float32 branch rows
+    (ops/pfb.py:deinterleave), bank constants h0/h1 (Q, D), dft_c/dft_s
+    (M, C), bin_odd (C,).
+
+    Returns yr, yi (C, n) float32 channel streams, n = n_x - 2Q.  A CPU
+    tensor runs the plain version; a CUDA tensor launches
+    csrc/pfb_channelize.cu (and counts it in pfb_channelize.launches)."""
+    _check_bank("pfb_channelize", xp, h0, h1, dft_c, dft_s, bin_odd)
+    Q, D = h0.shape
+    if xp.ndim != 3 or xp.shape[:2] != (2, D) or xp.shape[2] <= 2 * Q:
+        raise ValueError(f"pfb_channelize: xp must be (2, {D}, n_x) with "
+                         f"n_x > {2 * Q}, got {tuple(xp.shape)}")
+    if xp.device.type == "cpu":
+        return pfb_channelize_plain(xp, h0, h1, dft_c, dft_s, bin_odd)
+    if xp.device.type != "cuda":
+        raise ValueError(f"pfb_channelize: unsupported device {xp.device}")
+    C = dft_c.shape[1]
+    n_x = xp.shape[2]
+    xp, h0, h1, dft_c, dft_s, bin_odd = (
+        t.contiguous() for t in (xp, h0, h1, dft_c, dft_s, bin_odd))
+    yr = torch.empty((C, n_x - 2 * Q), dtype=torch.float32, device=xp.device)
+    yi = torch.empty_like(yr)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = _channelize_launcher()(xp.data_ptr(), n_x, h0.data_ptr(),
+                                h1.data_ptr(), dft_c.data_ptr(),
+                                dft_s.data_ptr(), bin_odd.data_ptr(), Q, D,
+                                C, yr.data_ptr(), yi.data_ptr(), stream)
+    cuda_build.check(rc, "pfb_channelize")
+    pfb_channelize.launches += 1
+    return yr, yi
+
+
+pfb_channelize.launches = 0

@@ -9,10 +9,17 @@ the reference's 22.5 kHz full-rate probe so the on/off ratio (and the
 10 dB squelch) keeps its meaning on a flat noise floor.
 
 The constants are a copy of gr_bluetooth_tpu/ops/snr.py's
-make_stream_snr_consts.  The partials come from the kernels
-(ops/pfb_kernel.pfb_snr's per-tile energies, ops/demod_kernel.demod_pack's
-probe energies); `assemble_slot_snr` turns them into the (S, C) slot SNR
-with the grouping of gr_bluetooth_tpu/ops/snr.py:assemble_fused_snr.
+make_stream_snr_consts.  Two ways to the same (S, C) slot SNR:
+
+  * the fused chain's partials come from the kernels
+    (ops/pfb_kernel.pfb_snr's per-tile energies,
+    ops/demod_kernel.demod_pack's probe energies); `assemble_slot_snr`
+    groups them as gr_bluetooth_tpu/ops/snr.py:assemble_fused_snr does;
+  * the flat chain reads the channel streams themselves: `stream_snr`
+    is gr_bluetooth_tpu/ops/snr.py:_stream_snr_impl, torch code (the JAX
+    package computes it outside any Pallas kernel).  Its probe
+    contraction is an FP32 matmul: TF32 is off for it alone
+    (utils/device.fp32_matmul), whatever the caller has set.
 """
 from __future__ import annotations
 
@@ -25,10 +32,11 @@ from ..constants import (CHANNEL_FILTER_CUTOFF, CHANNEL_FILTER_TRANSITION,
                          CHANNEL_WIDTH, NOISE_FILTER_CUTOFF,
                          NOISE_FILTER_TRANSITION, NOISE_PROBE_OFFSET,
                          SYMBOLS_PER_SLOT)
+from ..utils.device import fp32_matmul
 from .filters import lowpass_taps
 
 __all__ = ["PROBE_STRIDE", "StreamSnrConsts", "make_stream_snr_consts",
-           "probe_points", "assemble_slot_snr"]
+           "probe_points", "assemble_slot_snr", "stream_snr"]
 
 PROBE_STRIDE = 40                       # probe energy samples per slot: ~31
 
@@ -109,3 +117,58 @@ def assemble_slot_snr(oe, pe, *, S: int, slot_ch: int, kappa: float,
     off = off * kappa
     return 10.0 * (torch.log10(torch.clamp(on, min=1e-30)) -
                    torch.log10(torch.clamp(off, min=1e-30)))
+
+
+def _probe_grid(yr, yi, taps_re, taps_im):
+    """Probe band-pass energy at every PROBE_STRIDE-grid position of the
+    given complex streams: (R, n) -> (R, np_), np_ = (n - Tp)//stride + 1,
+    taps zero-padded to Tp, a multiple of the stride.  The strided
+    convolution as (R, n/40, 40) @ (40, A) matmuls plus a diagonal sum,
+    as gr_bluetooth_tpu/ops/snr.py:_probe_grid computes it."""
+    R, n = yr.shape
+    T = taps_re.shape[0]
+    A = -(-T // PROBE_STRIDE)
+    Tp = A * PROBE_STRIDE
+    tr = torch.nn.functional.pad(taps_re, (0, Tp - T)).reshape(
+        A, PROBE_STRIDE).T
+    ti = torch.nn.functional.pad(taps_im, (0, Tp - T)).reshape(
+        A, PROBE_STRIDE).T
+    m40 = n // PROBE_STRIDE
+    np_ = (n - Tp) // PROBE_STRIDE + 1
+    yv_r = yr[:, : m40 * PROBE_STRIDE].reshape(R, m40, PROBE_STRIDE)
+    yv_i = yi[:, : m40 * PROBE_STRIDE].reshape(R, m40, PROBE_STRIDE)
+
+    def dsum(m):                                           # (R, m40, A)
+        acc = m[:, 0:np_, 0]
+        for a in range(1, A):
+            acc = acc + m[:, a: a + np_, a]
+        return acc                                         # (R, np_)
+
+    with fp32_matmul():
+        p_re = dsum(yv_r @ tr) - dsum(yv_i @ ti)
+        p_im = dsum(yv_r @ ti) + dsum(yv_i @ tr)
+    return p_re ** 2 + p_im ** 2
+
+
+def stream_snr(yr, yi, taps_re, taps_im, *, slot_ch: int, kappa: float):
+    """(C+1, n) channel streams (last row = the probe row above the top
+    channel) -> (snr_db, on, off), each (S, C), S = n // slot_ch.
+
+    on = slot mean of |y|^2; off = slot mean (31 grid points per slot) of
+    the probe energies of row c+1, slots past the last full group
+    edge-padded from it, times kappa."""
+    Cp, n = yr.shape
+    C = Cp - 1
+    S = n // slot_ch
+    m = S * slot_ch
+    on = (yr[:C, :m] ** 2 + yi[:C, :m] ** 2).reshape(C, S, slot_ch).mean(-1)
+    pe = _probe_grid(yr[1:, :m], yi[1:, :m], taps_re, taps_im)
+    per_slot = slot_ch // PROBE_STRIDE
+    Sp = min(S, pe.shape[1] // per_slot)
+    off = pe[:, : Sp * per_slot].reshape(C, Sp, per_slot).mean(-1)
+    if Sp < S:
+        off = torch.cat([off, off[:, -1:].expand(C, S - Sp)], 1)
+    off = off * kappa
+    snr_db = 10.0 * (torch.log10(torch.clamp(on, min=1e-30)) -
+                     torch.log10(torch.clamp(off, min=1e-30)))
+    return snr_db.T, on.T, off.T

@@ -22,7 +22,8 @@ __all__ = ["SOURCES", "build_all", "build_logs", "check", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("pfb_snr", "demod_pack", "detect_words")
+SOURCES = ("pfb_snr", "demod_pack", "detect_words", "pfb_channelize",
+           "deinterleave")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

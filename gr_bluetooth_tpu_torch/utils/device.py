@@ -6,9 +6,11 @@ carries on quietly on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "fp32_matmul"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +22,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Matmuls enqueued inside the block run in FP32, not TF32; the
+    process-wide flag is restored on exit, so a caller's own setting
+    holds outside."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag

@@ -6,8 +6,9 @@
   * wire_decode is bit-identical to wire_decode_np for every format;
   * no file of the port, and not chip_smoke.py, imports jax or
     gr_bluetooth_tpu;
-  * entry points with no device on a machine without a card raise, and
-    the paths not ported yet raise NotImplementedError.
+  * entry points with no device on a machine without a card raise, the
+    paths not ported yet (odd and off-grid rates) raise
+    NotImplementedError, and the kernel wrappers refuse bad input.
 """
 import ast
 from pathlib import Path
@@ -26,7 +27,7 @@ from gr_bluetooth_tpu_torch import convert
 from gr_bluetooth_tpu_torch.core import access_code
 from gr_bluetooth_tpu_torch.io import ingest
 from gr_bluetooth_tpu_torch.models import frontend, lap_survey
-from gr_bluetooth_tpu_torch.ops import pfb, snr, synth
+from gr_bluetooth_tpu_torch.ops import pfb, pfb_kernel, snr, synth
 
 ROOT = Path(__file__).resolve().parent.parent
 RATES = [(4e6, 2441e6), (8e6, 2426e6), (20e6, 2450e6), (80e6, 2441e6)]
@@ -147,17 +148,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(sample_rate=5e6),
-                                dict(sample_rate=7.68e6),
-                                dict(sample_rate=8e6, enable_le=True)])
+                                dict(sample_rate=7.68e6)])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         frontend.FrontEnd(center_freq=2441e6, device="cpu", **kw)
 
 
 def test_wrappers_take_cpu_or_cuda_only():
-    from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel,
-                                            pfb_kernel)
+    from gr_bluetooth_tpu_torch.ops import demod_kernel, detect_kernel
     m = torch.device("meta")
+    with pytest.raises(ValueError):
+        pfb.deinterleave(torch.zeros((2, 400), device=m), 40)
+    with pytest.raises(ValueError):
+        pfb_kernel.pfb_channelize(torch.zeros((2, 2, 30), device=m),
+                                  torch.zeros((7, 2), device=m),
+                                  torch.zeros((7, 2), device=m),
+                                  torch.zeros((4, 3), device=m),
+                                  torch.zeros((4, 3), device=m),
+                                  torch.zeros(3, device=m))
     with pytest.raises(ValueError):
         detect_kernel.detect_words(torch.zeros((2, 8), dtype=torch.int32,
                                                device=m), 32, 1,
@@ -174,3 +182,25 @@ def test_wrappers_take_cpu_or_cuda_only():
                                 torch.zeros((2, 2048), device=m), 1.0, 512,
                                 torch.zeros(3, device=m),
                                 torch.zeros(3, device=m), 1)
+
+
+def test_new_wrappers_check_their_input():
+    """deinterleave and pfb_channelize refuse a wrong dtype or shape on
+    any device, before they pick a version."""
+    with pytest.raises(TypeError):
+        pfb.deinterleave(torch.zeros((2, 400), dtype=torch.float64), 40)
+    with pytest.raises(TypeError):
+        pfb.deinterleave(torch.zeros((3, 400)), 40)
+    with pytest.raises(ValueError):
+        pfb.deinterleave(torch.zeros((2, 30)), 40)
+    b = pfb.make_pfb_bank(4e6, 2441e6)
+    bank = [torch.from_numpy(a.copy()) for a in
+            (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
+    Q, D = b.h0.shape
+    with pytest.raises(ValueError, match="n_x"):
+        pfb_kernel.pfb_channelize(torch.zeros((2, D, 2 * Q)), *bank)
+    with pytest.raises(ValueError, match="n_x"):
+        pfb_kernel.pfb_channelize(torch.zeros((2, D + 1, 50)), *bank)
+    with pytest.raises(TypeError):
+        pfb_kernel.pfb_channelize(
+            torch.zeros((2, D, 50), dtype=torch.float64), *bank)

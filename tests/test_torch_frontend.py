@@ -1,4 +1,5 @@
-"""The port's FrontEnd.device_step against the JAX package's step.
+"""The port's fused chain (FrontEnd.fused_step, which stream() runs)
+against the JAX package's step on the staged layout.
 
 The JAX side runs its main path: the staged input through the Pallas
 megakernel, the packed detector, packed squelch, packed hit extraction
@@ -6,7 +7,9 @@ and the bit-aligned window gather, with the Pallas kernels in interpret
 mode.  The port runs the plain PyTorch versions of its kernels on the
 CPU, on the constants carried across with convert.consts_from_jax.
 Hit counts, hit tables and windows must be identical; the slot SNR
-agrees within 1e-3 dB (sums run in another order).
+agrees within 1e-3 dB (sums run in another order).  The flat chain
+(FrontEnd.device_step) has its own tests in tests/test_torch_flat.py;
+its table overflow is held here beside the fused chain's.
 """
 import numpy as np
 import pytest
@@ -85,7 +88,7 @@ def _compare_steps(fj, ft, x):
     for i in range(n_blocks):
         xb = x[:, i * fj.step_samples: i * fj.step_samples + fj.block_samples]
         oj = fj._jit_step(jnp.asarray(fj.stage_block(xb)))
-        ot = ft.device_step(xb)
+        ot = ft.fused_step(xb)
         assert ot[4:] == (None, None, None)
         snr_j, snr_t = np.asarray(oj[0]), ot[0].numpy()
         assert snr_t.dtype == np.float32 and snr_t.shape == snr_j.shape
@@ -117,10 +120,21 @@ def test_hit_table_overflow_keeps_count(interpret):
     x = _planted(8e6, 16, seed=5)
     xb = x[:, : fj.block_samples]
     oj = fj._jit_step(jnp.asarray(fj.stage_block(xb)))
-    ot = ft.device_step(xb)
+    ot = ft.fused_step(xb)
     assert int(ot[1]) == int(oj[1]) > 4
     assert np.array_equal(ot[2].numpy(), np.asarray(oj[2]))
     assert np.array_equal(ot[3].numpy(), np.asarray(oj[3]))
+
+
+def test_flat_hit_table_overflow_keeps_count(interpret):
+    """The same overflow through the flat chain against the JAX step on
+    flat planes: the same count and first max_hits rows."""
+    fj, ft = _pair(8e6, max_ac_errors=6, max_hits=4, use_squelch=False)
+    xb = _planted(8e6, 16, seed=5)[:, : fj.block_samples]
+    oj = fj._jit_step(jnp.asarray(xb))
+    ot = ft.device_step(xb)
+    assert int(ot[1]) == int(oj[1]) > 4
+    assert np.array_equal(ot[2].numpy(), np.asarray(oj[2]))
 
 
 def test_extract_and_gather_match_jax():

@@ -10,7 +10,10 @@ imports JAX, so on a machine without JAX run it as
 Tolerances are the card's: the kernels contract multiply-adds into FMAs
 and sum in another order than the plain versions, so channel streams
 agree within 2e-5, slot SNR within 1e-3 dB, packed symbols up to one
-mismatch per 10^5 (at least one allowed), detector planes exactly.
+mismatch per 10^5 (at least one allowed), detector planes and the
+deinterleaved planes exactly.  The two chains of the step (device_step
+and stream_sync: deinterleave, pfb_channelize, torch demod; stream():
+pfb_snr, demod_pack) are held to each other with the same tolerances.
 """
 import numpy as np
 import pytest
@@ -115,17 +118,23 @@ def test_detect_words_kernel_is_exact(cuda, max_ac_errors):
                    .sum()) >= 5
 
 
+def _launches():
+    return {k.__name__: k.launches for k in chip_smoke.KERNELS}
+
+
 def test_device_step_on_card_matches_cpu(fe8):
-    """The whole step through the three kernels against the plain
-    versions on the CPU: same hit table, windows within the symbol
-    tolerance, SNR within 1e-3 dB; each kernel launched once."""
+    """The whole fused step (stream()'s chain) through its three kernels
+    against the plain versions on the CPU: same hit table, windows
+    within the symbol tolerance, SNR within 1e-3 dB; each of its kernels
+    launched once, the flat chain's not at all."""
     fc = FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=6, device="cpu")
     x, planted = chip_smoke.plant_capture(fc, 1, seed=4)
-    counts = [k.launches for k in chip_smoke.KERNELS]
-    og = fe8.device_step(x)
-    assert [k.launches for k in chip_smoke.KERNELS] == \
-        [c + 1 for c in counts]
-    oc = fc.device_step(x)
+    counts = _launches()
+    og = fe8.fused_step(x)
+    assert _launches() == {k: c + (k in ("pfb_snr", "demod_pack",
+                                         "detect_words"))
+                           for k, c in counts.items()}
+    oc = fc.fused_step(x)
     assert og[0].is_cuda and og[2].is_cuda
     torch.testing.assert_close(og[0].cpu(), oc[0], atol=1e-3, rtol=0)
     assert int(og[1]) == int(oc[1]) >= 10
@@ -134,10 +143,31 @@ def test_device_step_on_card_matches_cpu(fe8):
     assert _popcount_diff(w, oc[3]) <= max(1, w.numel() * 32 * 1e-5)
 
 
+def test_flat_step_on_card_matches_cpu(fe8):
+    """The flat step (device_step) through deinterleave, pfb_channelize
+    and detect_words against the plain versions on the CPU; each of
+    those launched once, pfb_snr and demod_pack not at all."""
+    fc = FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=6, device="cpu")
+    x, planted = chip_smoke.plant_capture(fc, 1, seed=4)
+    counts = _launches()
+    og = fe8.device_step(x)
+    assert _launches() == {k: c + (k in ("deinterleave", "pfb_channelize",
+                                         "detect_words"))
+                           for k, c in counts.items()}
+    oc = fc.device_step(x)
+    torch.testing.assert_close(og[0].cpu(), oc[0], atol=1e-3, rtol=0)
+    assert int(og[1]) == int(oc[1]) >= 10
+    assert torch.equal(og[2].cpu(), oc[2])
+    w = og[3].cpu()
+    assert _popcount_diff(w, oc[3]) <= max(1, w.numel() * 32 * 1e-5)
+
+
 def test_stream_on_card_matches_stream_sync(fe8):
-    """The pipelined ingest (int16 wire, device carry, packed outputs)
-    against the synchronous loop on the same quantized samples, over a
-    capture whose last block is zero-padded."""
+    """The pipelined ingest (int16 wire, device carry, packed outputs,
+    the fused chain) against the synchronous loop (the flat chain) on
+    the same quantized samples, over a capture whose last block is
+    zero-padded: the same hits, SNR within 1e-3 dB, windows within the
+    symbol tolerance."""
     x, planted = chip_smoke.plant_capture(fe8, 3, seed=6)
     x = 0.25 * x[:-1000]                  # inside int16 full scale
     a = list(fe8.stream(x, start_clkn=7, wire="i16"))
@@ -151,6 +181,62 @@ def test_stream_on_card_matches_stream_sync(fe8):
     assert key == [[(h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
                     for h in r.hits] for r in b]
     assert sum(map(len, key)) >= 15
+    chip_smoke.compare_chains(fe8, b, a, x.shape[0])
+
+
+def test_stream_with_le_matches_stream_sync_on_card(cuda):
+    """LE on, 8 Msps centred on 2426 MHz (advertising channel 38): both
+    chains on the card report every planted classic and LE packet, with
+    the same hit keys, SNR within 1e-3 dB and windows within the symbol
+    tolerance."""
+    fe = FrontEnd(8e6, 2426e6, block_slots=8, max_ac_errors=1,
+                  enable_le=True)
+    x, planted, le_planted = chip_smoke.plant_le_capture(fe, 3,
+                                                         le_per_block=2)
+    flat, fused = list(fe.stream_sync(x)), list(fe.stream(x))
+    for res in (flat, fused):
+        chip_smoke.check_survey([h for r in res for h in r.hits], planted)
+        chip_smoke.check_le([h for r in res for h in r.le_hits], le_planted)
+    chip_smoke.compare_chains(fe, flat, fused, x.shape[0])
+
+
+def _bank(fs, center, device):
+    b = pfb.make_pfb_bank(fs, center)
+    return [torch.from_numpy(a.copy()).to(device)
+            for a in (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
+
+
+@pytest.mark.parametrize("n", [1, 37, 50, 1000, 1234])
+def test_pfb_channelize_kernel_matches_plain(cuda, n):
+    """Below one tile, whole tiles and a ragged last tile."""
+    bank = _bank(20e6, 2450e6, cuda)
+    Q, D = bank[0].shape
+    r = np.random.default_rng(n)
+    xp = torch.from_numpy(r.normal(0, 0.5, (2, D, n + 2 * Q)).astype(
+        np.float32)).to(cuda)
+    before = pfb_kernel.pfb_channelize.launches
+    yr, yi = pfb_kernel.pfb_channelize(xp, *bank)
+    assert pfb_kernel.pfb_channelize.launches == before + 1
+    pr, pi = pfb_kernel.pfb_channelize_plain(xp, *bank)
+    assert yr.shape == pr.shape == (bank[2].shape[1], n)
+    torch.testing.assert_close(yr, pr, atol=2e-5, rtol=0)
+    torch.testing.assert_close(yi, pi, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("D,N", [(40, 40 * 3000 + 17), (10, 10 * 33),
+                                 (3, 31), (64, 64 * 100), (33, 33 * 65 + 32)])
+def test_deinterleave_kernel_is_exact(cuda, D, N):
+    r = np.random.default_rng(N)
+    x = torch.from_numpy(r.normal(size=(2, N)).astype(np.float32)).to(cuda)
+    before = pfb.deinterleave.launches
+    xp = pfb.deinterleave(x, D)
+    assert pfb.deinterleave.launches == before + 1
+    assert xp.shape == (2, D, N // D)
+    assert torch.equal(xp, pfb.deinterleave_plain(x, D))
+    # a view whose rows are not contiguous is copied first
+    wide = torch.zeros((2, N + 5), device=cuda)
+    wide[:, :N] = x
+    assert torch.equal(pfb.deinterleave(wide[:, :N], D), xp)
 
 
 def test_wrappers_raise_on_bad_cuda_input(cuda):
@@ -164,3 +250,17 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
                            torch.zeros((8, 3), device=cuda),
                            torch.zeros((8, 3), device=cuda),
                            torch.zeros(3, device=cuda), 49)
+
+
+def test_flat_wrappers_raise_on_bad_cuda_input(cuda):
+    bank = _bank(8e6, 2441e6, cuda)
+    Q, D = bank[0].shape
+    with pytest.raises(TypeError):
+        pfb.deinterleave(torch.zeros((2, 400), dtype=torch.float64,
+                                     device=cuda), D)
+    with pytest.raises(ValueError):
+        pfb_kernel.pfb_channelize(torch.zeros((2, D, 2 * Q), device=cuda),
+                                  *bank)
+    with pytest.raises(ValueError):
+        pfb_kernel.pfb_channelize(torch.zeros((2, D, 50), device=cuda),
+                                  *[t.cpu() for t in bank])

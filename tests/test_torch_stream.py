@@ -1,9 +1,11 @@
 """The port's streaming paths and LAP survey against the JAX package.
 
 FrontEnd.stream (the pipelined ingest: wire decode and overlap carry on
-the device, packed single-buffer outputs) must give the same hits as
-FrontEnd.stream_sync and as the JAX package's FrontEnd.stream on its
-packed Pallas path (interpret mode); LapSurvey must report the same
+the device, packed single-buffer outputs, the fused chain) must give the
+same hits as the JAX package's FrontEnd.stream on its packed Pallas path
+(interpret mode), and the same hits, windows and SNR (within 1e-4 dB) as
+FrontEnd.stream_sync, which runs the other chain (deinterleave,
+pfb_channelize, the torch demodulator); LapSurvey must report the same
 observations as the JAX LapSurvey.
 """
 import numpy as np
@@ -82,6 +84,8 @@ def test_stream_matches_stream_sync_and_jax(capture, wire, interpret):
         sr, nr = fj.packet_symbols_matrix(rr)
         assert np.array_equal(sg, sr) and np.array_equal(ng, nr)
     if wire == "f32":
+        # the flat chain on the same samples: here too every window and
+        # every hit is identical
         sync = list(ft.stream_sync(capture, start_clkn=100))
         assert _key(sync) == _key(got)
         for a, b in zip(sync, got):
