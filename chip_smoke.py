@@ -8,7 +8,7 @@ NVIDIA card, at the full-band configuration: 80 Msps centred on
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit, from nvidia-smi;
-2. build the five CUDA kernels from csrc/ (nvcc, one process each, all
+2. build the five CUDA libraries from csrc/ (nvcc, one process each, all
    started together);
 3. on one full-band block, run each kernel and its plain PyTorch version
    on the same device tensors and hold them together:
@@ -48,9 +48,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    block, they differ on signed zeros, and those symbols are counted
    and printed apart);
 6. a small reference: an 8 Msps survey on the card against the plain
-   versions on the CPU — same observations, SNR within 1e-3 dB.
+   versions on the CPU — same observations, SNR within 1e-3 dB;
+7. the modes, at full band over bench.py's sniffer captures (three
+   piconets, 256 slots, seed 13; counters zeroed before each run and read
+   after it: the fused chain's three kernels once per block, no other):
+   a. Sniffer (LE on).run over `max_rate` (a DM1 in every slot, 250
+      planted) and `mixed` (every slot busy with 1/3/5-slot DM/DH, 101
+      planted): every decoded packet is a planted one (slot, channel,
+      LAP, UAP, type), none twice, at least 249 and 101 decoded, one
+      uap_found per piconet with its UAP; then the host decode alone over
+      the fetched blocks, which must decode the same packets;
+   b. UapDiscovery and Hopper (int16 wire) over `e2e`: UAP 0x47 with a
+      consistent CLK1-6, CLK1-27 offset 0x12780 from a candidate scan on
+      the card, every followed packet at the master's clock; the
+      Hopper's pattern replayed through DeviceWinnower on the card and
+      on the CPU, which must agree;
+   c. Sniffer over an LE connection capture: the CONNECT_REQ's access
+      address, CRCInit and hop increment, every data packet followed with
+      a good CRC on the channel the follower predicts.
+   Each prints host seconds, samples/s to the last result, host decode
+   microseconds per hit and peak device memory.
 
-The next-to-last line is {"kernels": [...]} (times in ms on this card;
+Phase 3 also checks detect_words with emit_err (its 7 error-count planes
+exact against the plain version) and times it, and phase 3c runs the
+dense detector entry points (gated_error, classic_detect_words) on the
+block's unpacked words against the plain versions on the CPU, every
+offset equal, and classic_detect_words' hits against detect_words'.
+
+The next-to-last line is {"kernels": [...]}, one row per kernel and one
+for detect_words with emit_err (times in ms on this card;
 bound_ms is the larger of bytes / 3.35 TB/s and operations over the peak
 rate of their type: 67 T/s for float32, 16.75 T/s for int32 and logical
 operations; the channelizers' DFT counts as an M-point FFT at
@@ -60,6 +86,7 @@ CUDA device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -68,15 +95,20 @@ import time
 import numpy as np
 import torch
 
+from gr_bluetooth_tpu_torch import testing
 from gr_bluetooth_tpu_torch.constants import LE_ADV_AA, SYMBOLS_PER_SLOT
 from gr_bluetooth_tpu_torch.core import whitening
 from gr_bluetooth_tpu_torch.core.access_code import ac_bits
 from gr_bluetooth_tpu_torch.models import frontend
+from gr_bluetooth_tpu_torch.models.hopper import Hopper
 from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
-from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel, pfb,
-                                        pfb_kernel, snr, synth)
+from gr_bluetooth_tpu_torch.models.sniffer import Sniffer
+from gr_bluetooth_tpu_torch.models.uap_discovery import UapDiscovery
+from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel,
+                                        hop_ops, pfb, pfb_kernel, snr, synth)
 from gr_bluetooth_tpu_torch.utils import cuda_build
 from gr_bluetooth_tpu_torch.utils.bits import host_to_air
+from gr_bluetooth_tpu_torch.utils.log import EventBus
 
 FS, CENTER, BLOCK_SLOTS, N_BLOCKS = 80e6, 2441e6, 64, 3
 LAPS = (0x24D952, 0x9E8B33, 0x123456, 0xABCDEF, 0x5A17EC, 0x000F0F,
@@ -94,13 +126,26 @@ FUSED = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
 FLAT = (pfb.deinterleave, pfb_kernel.pfb_channelize,
         detect_kernel.detect_words)
 KERNELS = FUSED + FLAT[:2]
+# detect_words with emit_err (its error-count planes) is a kernel of its
+# own, counted apart in detect_words.err_launches
+DETECT_ERR = "detect_words_err"
 REPLACES = {
     "pfb_snr": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "demod_pack": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "detect_words": "gr_bluetooth_tpu/ops/detect_pallas.py:200",
+    DETECT_ERR: "gr_bluetooth_tpu/ops/detect_pallas.py:200",
     "pfb_channelize": "gr_bluetooth_tpu/ops/pfb_kernel.py:193",
     "deinterleave": "gr_bluetooth_tpu/ops/pfb.py:126",
 }
+# the modes' captures: bench.py's sniffer configuration (bench.py:338-342,
+# 438-442), three piconets (LAP, UAP, CLK1-27 at slot 0), 256 slots,
+# seed 13; the first piconet is the e2e capture's
+PICONETS = ((0x24D952, 0x47, 0x12780), (0x1A2B3C, 0x99, 0x00450),
+            (0x654321, 0x13, 0x71111))
+MODE_SLOTS, MODE_SEED = 256, 13
+# decoded packets each capture must give at 80 Msps, of 250 and 101
+# planted (the JAX package's counts on the same captures, BENCH_r05.json)
+MIN_DECODED = {"max_rate": 249, "mixed": 101}
 
 
 def card_line() -> str:
@@ -392,7 +437,8 @@ def detect_ops_per_word(max_err: int) -> int:
 
 
 def kernel_checks(fe, xb):
-    """Phase 3: each kernel against its plain version on one block."""
+    """Phase 3: each kernel against its plain version on one block.
+    Returns the kernels' rows and the block's (79, W) packed words."""
     c, s = fe.consts, fe.statics
     Q, D = c["h0"].shape
     C, M = c["dft_c"].shape[1], 2 * D
@@ -475,8 +521,8 @@ def kernel_checks(fe, xb):
     wd = words[:-1]
     n_off = s["n_sym"] - 72 + 1
     dargs = (wd, n_off, s["max_ac_errors"], c["ac_masks"])
-    hit, gate = detect_kernel.detect_words(*dargs)
-    phit, pgate = detect_kernel.detect_words_plain(*dargs)
+    hit, gate, _ = detect_kernel.detect_words(*dargs)
+    phit, pgate, _ = detect_kernel.detect_words_plain(*dargs)
     torch.cuda.synchronize()
     n_diff = int((hit != phit).sum().item() + (gate != pgate).sum().item())
     print(f"detect_words: planes {tuple(hit.shape)}: {n_diff} differing "
@@ -495,6 +541,27 @@ def kernel_checks(fe, xb):
         ms=time_ms(lambda: detect_kernel.detect_words(*dargs), 50),
         plain_ms=time_ms(lambda: detect_kernel.detect_words_plain(*dargs),
                          10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # ---- detect_words with emit_err: the 7 error-count planes as well
+    eh, eg, ee = detect_kernel.detect_words(*dargs, emit_err=True)
+    ph, pg, perr = detect_kernel.detect_words_plain(*dargs, emit_err=True)
+    torch.cuda.synchronize()
+    assert torch.equal(eh, hit) and torch.equal(eg, gate)
+    n_diff = int((ee != perr).sum().item() + (eh != ph).sum().item() +
+                 (eg != pg).sum().item())
+    print(f"{DETECT_ERR}: planes {tuple(ee.shape)} + hit and gate: "
+          f"{n_diff} words differ from the plain version (exact required)")
+    assert n_diff == 0
+    # the same operations, and 7 more planes written
+    nbytes = wd.numel() * 4 + (2 + detect_kernel.N_ERR) * hit.numel() * 4
+    b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+    rows[DETECT_ERR] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: detect_kernel.detect_words(*dargs, emit_err=True),
+                   50),
+        plain_ms=time_ms(lambda: detect_kernel.detect_words_plain(
+            *dargs, emit_err=True), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # ---- deinterleave: the flat chain's (2, N) -> (2, D, n_x) copy
@@ -538,7 +605,7 @@ def kernel_checks(fe, xb):
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
               f"{r['library_ms']}")
-    return rows
+    return rows, wd
 
 
 def step_profile(label, step, xb, kernels, reps: int = 20):
@@ -582,7 +649,7 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
     for k in kernels:
         name = k.__name__
         t = [e.self_device_time_total for e in evs
-             if e.key.startswith(f"{name}_kernel")]
+             if e.key.removeprefix("void ").startswith(f"{name}_kernel")]
         assert t, f"{name}_kernel not in the profile"
         prof_ms[name] = sum(t) / n / 1e3
     return prof_ms
@@ -689,12 +756,288 @@ def small_reference():
           f"card and the CPU, SNR within {d:.2e} dB, {n} pairs found")
 
 
+def dense_detector(words, n_sym: int, masks, max_ac_errors: int = 6):
+    """Phase 3c: the dense detector entry points, whose kernel is
+    detect_words with emit_err.  The block's (C, W) words unpacked to
+    (C, n_sym) bits go through gated_error and classic_detect_words on
+    the words' device and through the plain versions on the CPU, which
+    must agree at every offset; classic_detect_words' hit plane must
+    equal detect_words' at the same max_ac_errors.  Returns
+    (error-plane launches of the device run, offsets, hits)."""
+    bits = detect_kernel.unpack_words(words, n_sym)
+    detect_kernel.detect_words.err_launches = 0
+    g = detect_kernel.gated_error(bits)
+    hits, err = detect_kernel.classic_detect_words(bits, max_ac_errors)
+    launches = detect_kernel.detect_words.err_launches
+    g, hits, err = g.cpu(), hits.cpu(), err.cpu()
+    cpu_bits = bits.cpu()
+    assert torch.equal(g, detect_kernel.gated_error(cpu_bits))
+    ph, pe = detect_kernel.classic_detect_words(cpu_bits, max_ac_errors)
+    assert torch.equal(hits, ph) and torch.equal(err, pe)
+    n = n_sym - 72 + 1
+    assert g.shape == (words.shape[0], n)
+    hitw, _, _ = detect_kernel.detect_words(words, n, max_ac_errors, masks)
+    assert torch.equal(detect_kernel.unpack_words(hitw, n).cpu() > 0, hits)
+    n_hits = int(hits.sum())
+    assert n_hits > 0, "no access code in the block"
+    print(f"dense detector: gated_error and classic_detect_words "
+          f"{tuple(g.shape)} equal to the plain versions at every offset; "
+          f"{n_hits} hits at max_ac_errors={max_ac_errors}, the same as "
+          f"detect_words' hit plane; {launches} error-plane launches")
+    return launches, n, n_hits
+
+
+def piconet_sims():
+    return [testing.PiconetSim(lap=lap, uap=uap, clk0=clk0)
+            for lap, uap, clk0 in PICONETS]
+
+
+def mode_captures(fs: float, center: float, n_slots: int = MODE_SLOTS,
+                  seed: int = MODE_SEED):
+    """bench.py's three sniffer captures: {"max_rate": every slot a DM1
+    of the three piconets in turn, "mixed": every slot busy with mixed
+    1/3/5-slot DM/DH packets, "e2e": the first piconet alone, a DM1 in
+    every other slot}, each (complex64 samples, sent)."""
+    sims = piconet_sims()
+    return {
+        "max_rate": testing.make_multi_piconet_capture(sims, n_slots, fs,
+                                                       center, seed=seed),
+        "mixed": testing.make_hostile_capture(sims, n_slots, fs, center,
+                                              seed=seed),
+        "e2e": testing.make_piconet_capture(
+            sims[0], n_slots, fs, center, seed=seed, noise_std=0.02,
+            tx_slots=range(0, n_slots - 8, 2))}
+
+
+def _pkt_key(p):
+    return (p.clkn, p.channel, p.lap, p.uap, p.packet_type,
+            None if p.payload is None else p.payload.tobytes())
+
+
+def check_sniffer(decoded, bus, sent, sims, min_decoded: int):
+    """Every decoded packet is a planted one: at its slot (clkn), on its
+    channel, with its LAP, its piconet's UAP and its type (sent rows are
+    (slot, channel, lap[, type]); without a type the capture planted DM1
+    only), none decoded twice, at least min_decoded of them; exactly one
+    uap_found per piconet, with its UAP.  Returns the decoded count."""
+    uap_of = {s.lap: s.uap for s in sims}
+    planted = {row[0]: (row[1], row[2], row[3] if len(row) > 3 else 3)
+               for row in sent}
+    seen = set()
+    for p in decoded:
+        want = planted.get(p.clkn)
+        assert want is not None, f"decoded a packet at unplanted slot {p.clkn}"
+        got = (p.channel, p.lap, p.packet_type)
+        assert got == want, f"slot {p.clkn}: decoded {got}, planted {want}"
+        assert p.uap == uap_of[p.lap], (p.clkn, hex(p.uap))
+        assert p.clkn not in seen, f"slot {p.clkn} decoded twice"
+        seen.add(p.clkn)
+    assert len(seen) >= min_decoded, \
+        f"{len(seen)} decoded, at least {min_decoded} required"
+    found = sorted((e["lap"], e["uap"]) for e in bus.events("uap_found"))
+    assert found == sorted(uap_of.items()), f"uap_found events {found}"
+    return len(seen)
+
+
+def check_uap(mode, uap, sent, sim):
+    """UapDiscovery found the piconet's UAP and a CLK1-6 offset that maps
+    the capture's slots onto its master's clock."""
+    pn = mode.piconet
+    assert uap == sim.uap, f"UAP {uap} found, {sim.uap:#x} planted"
+    assert pn.have_clk6
+    for slot, *_ in sent[:8]:
+        assert (slot + pn.clk_offset) & 0x3F == (sim.clk0 + slot) & 0x3F
+
+
+def check_hopper(mode, decoded, sim):
+    """Hopper acquired CLK1-27 once, at the master's clock, and every
+    packet it decoded carries the piconet's LAP and UAP, the master's
+    clock and the hop channel of that clock.  Returns the number of
+    initial CLK1-27 candidates."""
+    pn = mode.piconet
+    assert pn.have_clk27, "CLK1-27 not acquired"
+    assert pn.get_offset() == sim.clk0, hex(pn.get_offset())
+    assert len(mode.bus.events("clock_acquired")) == 1
+    assert decoded, "nothing decoded after acquisition"
+    for p in decoded:
+        assert (p.lap, p.uap) == (sim.lap, sim.uap), (hex(p.lap), hex(p.uap))
+        assert p.clock & 0x7FFFFFF == (sim.clk0 + p.clkn) & 0x7FFFFFF
+        assert p.channel == sim.channel_at(p.clkn)
+    return mode.bus.events("hop_reversal_started")[0]["candidates"]
+
+
+def replay_winnower(pn, device):
+    """The piconet's recorded (offset, channel) pattern through a
+    DeviceWinnower on `device` and on the CPU: the same candidates at
+    every step, ending at the acquired clock.  Returns the survivors."""
+    addr = ((pn.uap << 24) | pn.lap) & 0xFFFFFFF
+    clk6 = (pn.clk_offset + pn.first_pkt_time) & 0x3F
+    ws = [hop_ops.DeviceWinnower(addr, clk6, int(pn.pattern_channels[0]),
+                                 aliased=pn.aliased, afh=pn.afh, device=d)
+          for d in (device, "cpu")]
+    assert ws[0].mask.device.type == torch.device(device).type
+    for off, ch in zip(pn.pattern_indices, pn.pattern_channels):
+        counts = [w.winnow(int(off), int(ch)) for w in ws]
+        assert counts[0] == counts[1], counts
+    got = ws[0].candidates()
+    assert np.array_equal(got, ws[1].candidates())
+    want = (pn.clk_offset + pn.first_pkt_time) & 0x7FFFFFF
+    assert got.tolist() == [want], (got[:4], want)
+    return got
+
+
+def check_le_connection(mode, sim, sent):
+    """One le_connection event with the sim's access address, CRCInit and
+    hop increment, and every planted data packet seen on its channel
+    index at its slot (+-1) with a good CRC and the channel the follower
+    predicts.  Returns the data packets seen."""
+    (conn,) = mode.bus.events("le_connection")
+    assert (conn["aa"], conn["crc_init"], conn["hop"]) == \
+        (sim.conn_aa, sim.crc_init, sim.hop_increment), conn
+    pn = mode.low_energy_piconets[sim.conn_aa]
+    data = [p for p in mode.le_packets
+            if p.aa == sim.conn_aa and p.index < 37]
+    for slot, index, kind in sent:
+        if kind != "DATA":
+            continue
+        assert any(p.index == index and abs(p.clkn - slot) <= 1 and
+                   p.crc_ok(sim.crc_init) for p in data), \
+            f"data packet at slot {slot} on index {index} not followed"
+    assert pn.crc_bad_count == 0 and pn.crc_ok_count == len(data)
+    assert all(pn.predict_channel(p.clkn) == p.index for p in data)
+    return len(data)
+
+
+def _zero_counts():
+    for k in KERNELS:
+        k.launches = 0
+    detect_kernel.detect_words.err_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _counts():
+    c = {k.__name__: k.launches for k in KERNELS}
+    c[DETECT_ERR] = detect_kernel.detect_words.err_launches
+    return c
+
+
+def _want_fused(counts, n_blocks):
+    """The modes' path: the fused chain's kernels once per block, the
+    flat chain's and the error planes not at all."""
+    for name, n in counts.items():
+        want = n_blocks if name in [k.__name__ for k in FUSED] else 0
+        assert n == want, (name, counts, n_blocks)
+
+
+def sniffer_phase(name: str, x, sent, sims):
+    """Phase 7a: Sniffer(80 Msps, LE on).run over one of bench.py's
+    sniffer captures, counters read around exactly that run; then the
+    host decode alone, over the same capture's fetched blocks through a
+    fresh Sniffer, which must decode the same packets."""
+    sn = Sniffer(FS, CENTER, block_slots=BLOCK_SLOTS, bus=EventBus())
+    _zero_counts()
+    t0 = time.perf_counter()
+    decoded = sn.run(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, peak = _counts(), torch.cuda.max_memory_allocated()
+    n = check_sniffer(decoded, sn.bus, sent, sims, MIN_DECODED[name])
+    blocks = list(sn.fe.stream(x))
+    _want_fused(counts, len(blocks))
+    n_hits = sum(len(r.hits) for r in blocks)
+    again = Sniffer(FS, CENTER, block_slots=BLOCK_SLOTS, bus=EventBus())
+    t0 = time.perf_counter()
+    d2 = again.run_blocks(iter(blocks))
+    th = time.perf_counter() - t0
+    assert [_pkt_key(p) for p in d2] == [_pkt_key(p) for p in decoded]
+    n_le = sum(len(r.le_hits) for r in blocks)
+    print(f"sniffer {name}: {len(sent)} planted, {n_hits} hits, {n} decoded "
+          f"(each a planted packet), uap_found {len(sims)} of {len(sims)}, "
+          f"clock_lost {len(sn.bus.events('clock_lost'))}; {n_le} LE hits; "
+          f"launches {counts}")
+    print(f"sniffer {name}: {dt:.4f} s host clock for {x.shape[0]} samples "
+          f"({len(blocks)} blocks), {x.shape[0] / dt:.6g} samples/s to the "
+          f"last result; host decode alone {th:.4f} s = "
+          f"{th / max(n_hits, 1) * 1e6:.1f} us per hit; peak device memory "
+          f"{peak / 2 ** 20:.1f} MiB")
+
+
+def e2e_phase(x, sent, sim):
+    """Phase 7b: UapDiscovery and then Hopper over the e2e capture, the
+    Hopper's on the int16 wire (bench.py:457-460); counters read around
+    each run.  The Hopper's recorded pattern is replayed through a
+    DeviceWinnower on the card and on the CPU."""
+    ud = UapDiscovery(FS, CENTER, lap=sim.lap, block_slots=BLOCK_SLOTS,
+                      bus=EventBus())
+    _zero_counts()
+    t0 = time.perf_counter()
+    uap = ud.run(x)
+    torch.cuda.synchronize()
+    dt_uap = time.perf_counter() - t0
+    c_uap = _counts()
+    check_uap(ud, uap, sent, sim)
+    assert c_uap["pfb_snr"] >= 1 and c_uap[DETECT_ERR] == 0, c_uap
+
+    hp = Hopper(FS, CENTER, lap=sim.lap, block_slots=BLOCK_SLOTS,
+                bus=EventBus())
+    _zero_counts()
+    t0 = time.perf_counter()
+    decoded = hp.run_blocks(hp.fe.stream(x, wire="i16"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, peak = _counts(), torch.cuda.max_memory_allocated()
+    n0 = check_hopper(hp, decoded, sim)
+    n_blocks = -(-x.shape[0] // hp.fe.step_samples)
+    _want_fused(counts, n_blocks)
+    assert hp.piconet.device.type == "cuda" and \
+        n0 > hp.piconet.DEVICE_WINNOW_THRESHOLD, (hp.piconet.device, n0)
+    survivors = replay_winnower(hp.piconet, hp.piconet.device)
+    print(f"uap discovery e2e: UAP {uap:#04x}, CLK1-6 offset "
+          f"{ud.piconet.clk_offset}, {dt_uap:.4f} s host clock; launches "
+          f"{c_uap}")
+    print(f"hopper e2e (int16 wire): CLK1-27 offset "
+          f"{hp.piconet.get_offset():#07x} from {n0} candidates on the card, "
+          f"{len(hp.piconet.pattern_indices)} packets; {len(decoded)} "
+          f"packets decoded at the master's clock; replayed winnow on the "
+          f"card equals the CPU's and ends at {survivors.tolist()}")
+    print(f"hopper e2e: {dt:.4f} s host clock for {x.shape[0]} samples, "
+          f"{x.shape[0] / dt:.6g} samples/s to the last result; peak device "
+          f"memory {peak / 2 ** 20:.1f} MiB; launches {counts}")
+
+
+def le_phase():
+    """Phase 7c: Sniffer over an LE connection capture at full band (a
+    CONNECT_REQ on advertising channel 38, then one data packet per
+    connection event, CSA#1 over all 37 data channels)."""
+    sim = testing.LeConnectionSim()
+    x, sent = testing.make_le_connection_capture(
+        sim, n_slots=2 * BLOCK_SLOTS, fs=FS, center_freq=CENTER)
+    sn = Sniffer(FS, CENTER, block_slots=BLOCK_SLOTS, bus=EventBus())
+    _zero_counts()
+    t0 = time.perf_counter()
+    sn.run(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    n = check_le_connection(sn, sim, sent)
+    _want_fused(counts, 2)
+    print(f"sniffer LE connection: AA {sim.conn_aa:#010x}, CRCInit "
+          f"{sim.crc_init:#08x}, hop {sim.hop_increment}; {n} data packets "
+          f"followed with a good CRC of "
+          f"{sum(1 for *_, k in sent if k == 'DATA')} planted; {dt:.4f} s "
+          f"host clock; launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the modes log every decoded packet at INFO; warnings (hit-table
+    # overflow) still print
+    logging.getLogger("grbt").setLevel(logging.WARNING)
     card = card_line()
     print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
@@ -711,7 +1054,9 @@ def main() -> int:
                               max_ac_errors=1, enable_le=True)
     x, _ = plant_capture(fe, 1, seed=9)
     xb = fe.to_planes(x[: fe.block_samples])
-    rows = kernel_checks(fe, xb)
+    rows, words = kernel_checks(fe, xb)
+    err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
+                                        fe.consts["ac_masks"])
     profs = (("fused", step_profile("fused chain (LE off)", fe.fused_step,
                                     xb, FUSED)),
              ("flat", step_profile("flat chain (LE on)", fe_le.device_step,
@@ -732,14 +1077,20 @@ def main() -> int:
         launches[k.__name__] = flat_launches[k.__name__]
     small_reference()
 
+    caps, sims = mode_captures(FS, CENTER), piconet_sims()
+    e2e_phase(*caps["e2e"], sims[0])
+    le_phase()
+    for name in ("max_rate", "mixed"):
+        sniffer_phase(name, *caps[name], sims)
+
+    launches[DETECT_ERR] = err_launches
     out = []
-    for k in KERNELS:
-        name = k.__name__
-        r = rows[name]
+    for name in [k.__name__ for k in KERNELS] + [DETECT_ERR]:
+        source = "detect_words" if name == DETECT_ERR else name
         out.append(dict(name=name, route="cuda",
-                        source=f"gr_bluetooth_tpu_torch/csrc/{name}.cu",
+                        source=f"gr_bluetooth_tpu_torch/csrc/{source}.cu",
                         replaces=REPLACES[name], launches=launches[name],
-                        **r))
+                        **rows[name]))
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

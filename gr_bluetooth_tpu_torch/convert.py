@@ -5,6 +5,9 @@ the detector constants.  `consts_from_jax` takes the JAX package's
 `FrontEnd._step_kwargs`, with every array already converted to numpy,
 and returns what the port's `FrontEnd` holds in `consts` and `statics`,
 so a caller can run both front ends on identical constants.
+
+The modes' state crosses too: `state_from_jax` restores a JAX sniffer's
+checkpoint (piconet registries and stream cursor) into the port's.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from .models.frontend import consts_to_device
 from .ops.detect import le_table_consts
 from .ops.detect_kernel import ac_masks
 
-__all__ = ["consts_from_jax"]
+__all__ = ["consts_from_jax", "state_from_jax"]
 
 _STATICS = ("decim", "n_sym", "n_y", "slot_ch", "kappa", "demod_gain",
             "max_ac_errors", "delay_sym", "squelch", "max_hits",
@@ -49,3 +52,12 @@ def consts_from_jax(step_kwargs: dict):
     consts = consts_to_device(consts, "cpu")
     statics = {k: kw[k] for k in _STATICS}
     return consts, statics
+
+
+def state_from_jax(sniffer, path: str) -> int:
+    """Restore into the port's `sniffer` a checkpoint that the JAX
+    package's Sniffer.save_state wrote (gr_bluetooth_tpu/io/checkpoint.py):
+    the two packages write the same format, so this is the port's
+    Sniffer.restore_state, and the piconets take the sniffer's device.
+    Returns the stream cursor to resume from (pass it as start_clkn)."""
+    return sniffer.restore_state(path)

@@ -21,8 +21,8 @@ import numpy as np
 from ..constants import LE_ADV_AA
 
 __all__ = ["LE_PREAMBLE_DISTANCE", "AA_DISTANCE", "ACCESS_HEADER_DISTANCE",
-           "DATA_HEADER_DISTANCE", "LE_CHAN2INDEX", "freq2chan",
-           "freq2index"]
+           "DATA_HEADER_DISTANCE", "LE_CHAN2INDEX", "LE_INDEX2CHAN",
+           "freq2chan", "freq2index", "index2freq"]
 
 
 def _min_distance_table(nbits: int, valid: np.ndarray) -> np.ndarray:
@@ -68,6 +68,9 @@ LE_CHAN2INDEX = np.array(
      27, 28, 29, 30, 31, 32, 33, 34, 35, 36,
      39], dtype=np.int64)
 
+# inverse map: channel index 0..39 -> LE channel 0..39 (2402 + 2k MHz)
+LE_INDEX2CHAN = np.argsort(LE_CHAN2INDEX)
+
 
 def freq2chan(freq: float) -> int:
     """LE channel for an absolute frequency; -1 if not on the LE grid.
@@ -80,3 +83,8 @@ def freq2chan(freq: float) -> int:
 def freq2index(freq: float) -> int:
     ch = freq2chan(freq)
     return int(LE_CHAN2INDEX[ch]) if ch >= 0 else -1
+
+
+def index2freq(index: int) -> float:
+    """Absolute frequency of an LE channel index (0..39)."""
+    return 2402e6 + 2e6 * int(LE_INDEX2CHAN[index])

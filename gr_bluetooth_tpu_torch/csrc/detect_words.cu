@@ -1,8 +1,10 @@
 // detect_words: bit-packed classic access-code detection.
 //
 // Replaces gr_bluetooth_tpu/ops/detect_pallas.py:_planes_padded (reached
-// through detect_words, emit_err=False): the same hit and gate planes,
-// integer arithmetic only, bit-exact.
+// through detect_words): the same hit and gate planes and, with emit_err,
+// the same 7 bit-sliced error-count planes w1 ... w64 (LSB first),
+// integer arithmetic only, bit-exact.  Output: planes (2 or 9, C, n_words)
+// int32 = [hit, gate, w1, w2, ..., w64], the JAX kernel's (N_PLANES, C, W').
 //
 // One thread per candidate offset o (one warp per 32-offset output word).
 // The thread funnel-shifts the 68-symbol window out of words q..q+3
@@ -14,6 +16,10 @@
 //   bark = min(d, 7 - d), d = mismatches of symbols 61..67 with 1110010
 // hit = (pre + bark <= 2) & (err <= max_ac_errors); gate = pre + bark <= 2.
 // The warp's ballots are the hit and gate words; offsets >= n are zero.
+// With emit_err the warp ballots bit b of err, b = 0..6, into plane 2 + b.
+// Those planes are not masked at offsets >= n (nor are the JAX kernel's):
+// there they hold the error count of the window read with zeros past the
+// words' end, as the JAX planes do.  Callers read them at offsets < n.
 //
 // Bound on an H100 SXM (79 rows x 1,346 output words = 43,054 offsets
 // per row): 1.3 MB of words and planes move in 0.4 us.  The function
@@ -30,12 +36,12 @@
 
 #include <cuda_runtime.h>
 
+template <bool EMIT_ERR>
 __global__ void detect_words_kernel(const unsigned* __restrict__ words,
                                     int W, int n, int max_err,
                                     const unsigned* __restrict__ masks,
                                     int n_words,
-                                    int* __restrict__ hit,
-                                    int* __restrict__ gate)
+                                    int* __restrict__ planes)
 {
     __shared__ unsigned am[75];          // A68 columns (24 x 3), C68 (3)
     for (int i = threadIdx.x; i < 75; i += blockDim.x) am[i] = masks[i];
@@ -72,22 +78,37 @@ __global__ void detect_words_kernel(const unsigned* __restrict__ words,
     bool h = g && (err <= max_err);
     unsigned hw = __ballot_sync(0xffffffffu, h);
     unsigned gw = __ballot_sync(0xffffffffu, g);
+    const long long plane = (long long)gridDim.y * n_words;
+    int* out = planes + (long long)c * n_words + q;
     if ((threadIdx.x & 31) == 0 && q < n_words) {
-        hit[(long long)c * n_words + q] = (int)hw;
-        gate[(long long)c * n_words + q] = (int)gw;
+        out[0] = (int)hw;
+        out[plane] = (int)gw;
+    }
+    if (EMIT_ERR) {
+#pragma unroll
+        for (int b = 0; b < 7; ++b) {
+            unsigned ew = __ballot_sync(0xffffffffu, (err >> b) & 1);
+            if ((threadIdx.x & 31) == 0 && q < n_words)
+                out[(2 + b) * plane] = (int)ew;
+        }
     }
 }
 
 extern "C" int detect_words_launch(const int* words, int C, int W, int n,
                                    int max_err, const int* masks,
-                                   int* hit, int* gate, int n_words,
+                                   int* planes, int n_words, int emit_err,
                                    void* stream)
 {
     const int threads = 256;
     long long offsets = (long long)n_words * 32;
     dim3 grid((unsigned)((offsets + threads - 1) / threads), C);
-    detect_words_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)words, W, n, max_err, (const unsigned*)masks,
-        n_words, hit, gate);
+    if (emit_err)
+        detect_words_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const unsigned*)words, W, n, max_err, (const unsigned*)masks,
+            n_words, planes);
+    else
+        detect_words_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const unsigned*)words, W, n, max_err, (const unsigned*)masks,
+            n_words, planes);
     return (int)cudaGetLastError();
 }

@@ -558,8 +558,8 @@ def _packed_tail(words, bits, snr_db, *, ac_masks, word_s0, word_mask_a,
     """Both chains' tail (gr_bluetooth_tpu/models/frontend.py:750-808):
     (C, W) packed words, the dense (C, n_sym) bits where the chain has
     them (else None), (S, C) slot SNR -> the step's 7-tuple."""
-    hitw, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
-                                         max_ac_errors, ac_masks)
+    hitw, _, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
+                                            max_ac_errors, ac_masks)
     if squelch is not None:
         hitw = hitw & _squelch_gate_words(snr_db, word_s0, word_mask_a,
                                           squelch)

@@ -22,6 +22,7 @@ import chip_smoke
 from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
 from gr_bluetooth_tpu_torch.models.lap_survey import LapObservation, LapSurvey
 from gr_bluetooth_tpu_torch.ops import pfb_kernel
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -179,3 +180,123 @@ def test_refuses_outside_a_checkout(tmp_path):
     p = _run(tmp_path, tmp_path / "chip_smoke.py")
     assert p.returncode != 0
     assert '"ok"' not in p.stdout and '"kernels"' not in p.stdout
+
+
+def test_dense_detector_check():
+    """Phase 3c's check on the CPU: the dense entry points against their
+    plain versions (here the same) and against detect_words' hit plane,
+    on bits with access codes planted at the first and last offsets."""
+    from gr_bluetooth_tpu_torch.core.access_code import ac_bits
+    from gr_bluetooth_tpu_torch.ops import detect_kernel
+    r = np.random.default_rng(11)
+    C, T = 6, 3000
+    bits = r.integers(0, 2, (C, T))
+    for c, off in ((0, 0), (3, 1500), (5, T - 72)):
+        bits[c, off:off + 68] = ac_bits(0x24D952 + c)[:68]
+    words = detect_kernel.pack_bits_words(torch.from_numpy(bits))
+    launches, n, n_hits = chip_smoke.dense_detector(
+        words, T, torch.from_numpy(detect_kernel.ac_masks()))
+    assert (launches, n) == (0, T - 71) and n_hits >= 3
+
+
+@pytest.fixture(scope="module")
+def mode_caps():
+    """The modes phase's captures at 8 Msps (7 of the 79 channels)."""
+    return chip_smoke.mode_captures(8e6, 2441e6), chip_smoke.piconet_sims()
+
+
+def test_mode_captures_equal_the_jax_package(mode_caps):
+    from gr_bluetooth_tpu import testing as jtesting
+    caps, _ = mode_caps
+    sims = [jtesting.PiconetSim(lap=lap, uap=uap, clk0=clk0)
+            for lap, uap, clk0 in chip_smoke.PICONETS]
+    want = {"max_rate": jtesting.make_multi_piconet_capture(
+                sims, 256, 8e6, 2441e6, seed=13),
+            "mixed": jtesting.make_hostile_capture(sims, 256, 8e6, 2441e6,
+                                                   seed=13),
+            "e2e": jtesting.make_piconet_capture(
+                sims[0], 256, 8e6, 2441e6, seed=13, noise_std=0.02,
+                tx_slots=range(0, 248, 2))}
+    for name, (x, sent) in caps.items():
+        assert np.array_equal(x, want[name][0]) and sent == want[name][1]
+    assert len(caps["max_rate"][1]) == 250 and len(caps["mixed"][1]) == 101
+
+
+@pytest.fixture(scope="module")
+def sniffed(mode_caps):
+    from gr_bluetooth_tpu_torch.models.sniffer import Sniffer
+    from gr_bluetooth_tpu_torch.utils.log import EventBus
+    caps, sims = mode_caps
+    x, sent = caps["max_rate"]
+    sn = Sniffer(8e6, 2441e6, bus=EventBus(), device="cpu")
+    return sn, sn.run(x), sent, sims
+
+
+def test_check_sniffer_on_max_rate(sniffed):
+    sn, decoded, sent, sims = sniffed
+    in_band = [r for r in sent if r[1] in set(sn.fe.bank.channels)]
+    assert chip_smoke.check_sniffer(decoded, sn.bus, sent, sims,
+                                    len(in_band)) == len(in_band) >= 15
+
+
+def test_check_sniffer_rejects_wrong_results(sniffed):
+    sn, decoded, sent, sims = sniffed
+    p = decoded[3]
+    cases = {
+        "unplanted": [dataclasses.replace(p, clkn=255)],
+        "planted": [dataclasses.replace(p, packet_type=4)],
+        "twice": [p],
+        "at least": [],
+    }
+    for match, extra in cases.items():
+        n = len(decoded) + (1 if match == "at least" else 0)
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_sniffer(decoded + extra, sn.bus, sent, sims, n)
+    with pytest.raises(AssertionError, match="UAP|0x"):
+        chip_smoke.check_sniffer(decoded + [dataclasses.replace(
+            p, clkn=max(r[0] for r in sent) + 1)], sn.bus,
+            sent + [(max(r[0] for r in sent) + 1, p.channel, p.lap)],
+            [dataclasses.replace(s, uap=s.uap ^ 1) for s in sims], 0)
+
+
+def test_e2e_checks_and_winnower_replay(mode_caps):
+    """UapDiscovery and Hopper (int16 wire) over the e2e capture, the
+    Hopper's pattern replayed through DeviceWinnower (here on the CPU
+    twice)."""
+    from gr_bluetooth_tpu_torch.models.hopper import Hopper
+    from gr_bluetooth_tpu_torch.models.uap_discovery import UapDiscovery
+    from gr_bluetooth_tpu_torch.utils.log import EventBus
+    caps, sims = mode_caps
+    x, sent = caps["e2e"]
+    ud = UapDiscovery(8e6, 2441e6, lap=sims[0].lap, bus=EventBus(),
+                      device="cpu")
+    chip_smoke.check_uap(ud, ud.run(x), sent, sims[0])
+    hp = Hopper(8e6, 2441e6, lap=sims[0].lap, bus=EventBus(), device="cpu")
+    decoded = hp.run_blocks(hp.fe.stream(x, wire="i16"))
+    assert chip_smoke.check_hopper(hp, decoded, sims[0]) > \
+        hp.piconet.DEVICE_WINNOW_THRESHOLD
+    assert chip_smoke.replay_winnower(hp.piconet, "cpu").tolist() == \
+        [(sims[0].clk0 + hp.piconet.first_pkt_time) & 0x7FFFFFF]
+    with pytest.raises(AssertionError):
+        chip_smoke.check_hopper(hp, decoded, dataclasses.replace(
+            sims[0], clk0=sims[0].clk0 + 64))
+
+
+def test_check_le_connection():
+    """Phase 7c's check over tests/test_models.py's LE connection capture
+    (8 Msps centred on 2426 MHz: advertising channel 38 and data channel
+    indices 10 and 11)."""
+    from gr_bluetooth_tpu_torch import testing
+    from gr_bluetooth_tpu_torch.models.sniffer import Sniffer
+    from gr_bluetooth_tpu_torch.utils.log import EventBus
+    sim = testing.LeConnectionSim(ch_map=(1 << 10) | (1 << 11),
+                                  hop_increment=5, interval=6, win_offset=1)
+    x, sent = testing.make_le_connection_capture(sim, n_slots=128, fs=8e6,
+                                                 center_freq=2426e6)
+    sn = Sniffer(8e6, 2426e6, bus=EventBus(), device="cpu")
+    sn.run(x)
+    assert chip_smoke.check_le_connection(sn, sim, sent) == \
+        sum(1 for *_, kind in sent if kind == "DATA")
+    with pytest.raises(AssertionError):
+        chip_smoke.check_le_connection(
+            sn, dataclasses.replace(sim, crc_init=sim.crc_init ^ 1), sent)

@@ -28,6 +28,7 @@ from gr_bluetooth_tpu.ops import pfb as jpfb
 from gr_bluetooth_tpu.ops import pfb_kernel as jpfb_kernel
 from gr_bluetooth_tpu.ops import snr as jsnr
 from gr_bluetooth_tpu_torch.ops import demod, pfb, pfb_kernel, snr
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

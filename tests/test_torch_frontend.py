@@ -25,6 +25,7 @@ from gr_bluetooth_tpu.ops import synth as jsynth
 from gr_bluetooth_tpu.testing import PiconetSim, make_piconet_capture
 from gr_bluetooth_tpu_torch import convert
 from gr_bluetooth_tpu_torch.models import frontend
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

@@ -109,11 +109,12 @@ def test_detect_words_kernel_is_exact(cuda, max_ac_errors):
     masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
     for W in (words.shape[1], words.shape[1] - 5):      # zero past W
         n = W * 32 - 71
-        hit, gate = detect_kernel.detect_words(words[:, :W].contiguous(), n,
-                                               max_ac_errors, masks)
-        ph, pg = detect_kernel.detect_words_plain(words[:, :W], n,
-                                                  max_ac_errors, masks)
+        hit, gate, err = detect_kernel.detect_words(
+            words[:, :W].contiguous(), n, max_ac_errors, masks)
+        ph, pg, perr = detect_kernel.detect_words_plain(words[:, :W], n,
+                                                        max_ac_errors, masks)
         assert torch.equal(hit, ph) and torch.equal(gate, pg)
+        assert err is None and perr is None
         assert int(detect_kernel.popcount(hit.to(torch.int64) & 0xFFFFFFFF)
                    .sum()) >= 5
 
@@ -264,3 +265,69 @@ def test_flat_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError):
         pfb_kernel.pfb_channelize(torch.zeros((2, D, 50), device=cuda),
                                   *[t.cpu() for t in bank])
+
+
+@pytest.mark.parametrize("C,n", [(3, 1), (5, 37), (7, 1234), (79, 43054)])
+def test_error_planes_kernel_matches_plain(cuda, C, n):
+    """detect_words with emit_err: all 9 planes equal to the plain
+    version, at one offset, a ragged word, and the full band (79 rows,
+    43,054 offsets); and the dense entry points over them against the
+    plain versions on the CPU."""
+    from gr_bluetooth_tpu_torch.core.access_code import ac_bits
+    r = np.random.default_rng(n)
+    T = n + 71
+    bits = r.integers(0, 2, (C, T)).astype(np.int64)
+    for i, off in enumerate(sorted({0, n // 2, n - 1})):
+        ac = ac_bits(0x24D952 + i)[:68].copy()
+        ac[6 + i] ^= i % 2
+        bits[i % C, off:off + 68] = ac
+    tb = torch.from_numpy(bits)
+    words = detect_kernel.pack_bits_words(tb).to(cuda)
+    masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    before = (detect_kernel.detect_words.launches,
+              detect_kernel.detect_words.err_launches)
+    h, g, e = detect_kernel.detect_words(words, n, 6, masks, emit_err=True)
+    assert (detect_kernel.detect_words.launches,
+            detect_kernel.detect_words.err_launches) == \
+        (before[0], before[1] + 1)
+    ph, pg, pe = detect_kernel.detect_words_plain(words, n, 6, masks,
+                                                  emit_err=True)
+    assert e.shape == (detect_kernel.N_ERR, C, -(-n // 32))
+    assert torch.equal(h, ph) and torch.equal(g, pg) and torch.equal(e, pe)
+    hit0, gate0, none = detect_kernel.detect_words(words, n, 6, masks)
+    assert none is None and torch.equal(hit0, h) and torch.equal(gate0, g)
+    assert torch.equal(detect_kernel.gated_error(tb.to(cuda)).cpu(),
+                       detect_kernel.gated_error(tb))
+    hk, ek = detect_kernel.classic_detect_words(tb.to(cuda))
+    hc, ec = detect_kernel.classic_detect_words(tb)
+    assert torch.equal(hk.cpu(), hc) and torch.equal(ek.cpu(), ec)
+    assert int(hc.sum()) >= 1
+
+
+@pytest.mark.parametrize("aliased,afh", [(False, False), (True, False),
+                                         (False, True)])
+def test_device_winnower_on_card_matches_cpu(cuda, aliased, afh):
+    """DeviceWinnower's mask on the card, winnowed along a hop-consistent
+    pattern, against the same on the CPU: equal counts at every step and
+    equal survivors, the master's clock among them."""
+    from gr_bluetooth_tpu_torch.core import hop
+    from gr_bluetooth_tpu_torch.ops import hop_ops
+    r = np.random.default_rng(3 + 2 * aliased + afh)
+    address = int(r.integers(0, 1 << 28))
+    clk0 = int(r.integers(0, 1 << 27))
+    ac = hop.address_precalc(address)
+
+    def ch(off):
+        c = int(hop.hop((clk0 + off) & 0x7FFFFFF, ac, afh=afh))
+        return int(hop.aliased_channel(c)) if aliased else c
+
+    pattern = [(o, ch(o)) for o in (0, 2, 5, 9, 14, 27, 33, 1000, 40000)]
+    ws = [hop_ops.DeviceWinnower(address, clk0 & 0x3F, pattern[0][1],
+                                 aliased=aliased, afh=afh, device=d)
+          for d in (cuda, "cpu")]
+    assert ws[0].mask.is_cuda and ws[0].count == ws[1].count > 8192
+    for off, c in pattern[1:]:
+        assert ws[0].winnow(off, c) == ws[1].winnow(off, c)
+    got = ws[0].candidates()
+    assert np.array_equal(got, ws[1].candidates())
+    assert clk0 in got.tolist()

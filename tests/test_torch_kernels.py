@@ -28,6 +28,7 @@ from gr_bluetooth_tpu.ops import snr as jsnr
 from gr_bluetooth_tpu.testing import PiconetSim, make_piconet_capture
 from gr_bluetooth_tpu_torch.ops import demod_kernel, detect_kernel, pfb_kernel
 from gr_bluetooth_tpu_torch.ops import snr
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 FS, CENTER = 4e6, 2441e6
 
@@ -192,8 +193,9 @@ def test_detect_words_plain_matches_k2(max_ac_errors):
                                             max_ac_errors, interpret=True,
                                             emit_err=False)
     masks = torch.from_numpy(detect_kernel.ac_masks())
-    hit, gate = detect_kernel.detect_words(_t(words), n, max_ac_errors,
-                                           masks)
+    hit, gate, err = detect_kernel.detect_words(_t(words), n,
+                                                max_ac_errors, masks)
+    assert err is None
     assert np.array_equal(hit.numpy(), np.asarray(hit_j))
     assert np.array_equal(gate.numpy(), np.asarray(gate_j))
 

@@ -31,6 +31,7 @@ from gr_bluetooth_tpu.ops import synth as jsynth
 from gr_bluetooth_tpu_torch.core import le_tables, whitening
 from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.ops import detect
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

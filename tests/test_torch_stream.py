@@ -17,6 +17,7 @@ from gr_bluetooth_tpu.models import frontend as jfrontend
 from gr_bluetooth_tpu.models import lap_survey as jlap_survey
 from gr_bluetooth_tpu.ops import detect_pallas, synth
 from gr_bluetooth_tpu_torch.models import frontend, lap_survey
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 FS, CENTER = 8e6, 2441e6
 LAPS = (0x24D952, 0x9E8B33, 0x123456, 0x5A17EC)

@@ -5,6 +5,8 @@ and the symbol-window comparison the two demodulators allow."""
 import contextlib
 
 import numpy as np
+import pytest
+import torch
 
 from gr_bluetooth_tpu.constants import SYMBOLS_PER_SLOT
 from gr_bluetooth_tpu.core import access_code
@@ -17,6 +19,19 @@ from gr_bluetooth_tpu_torch import convert
 from gr_bluetooth_tpu_torch.models import frontend
 
 LAPS = (0x24D952, 0x9E8B33, 0x123456, 0xABCDEF, 0x5A17EC, 0x000F0F)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Imported by a test module, runs its torch CPU ops on one
+    intra-op thread and restores the count after it.  The tier-1 command
+    puts six pytest workers on the machine's cores, and the torch thread
+    pools of several workers at once starve one another: the port's
+    tests then run tens of times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager
