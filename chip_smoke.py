@@ -75,13 +75,18 @@ dense detector entry points (gated_error, classic_detect_words) on the
 block's unpacked words against the plain versions on the CPU, every
 offset equal, and classic_detect_words' hits against detect_words'.
 
+After the build it prints each kernel's registers, shared memory and
+spills (nvcc -Xptxas -v).
+
 The next-to-last line is {"kernels": [...]}, one row per kernel and one
 for detect_words with emit_err (times in ms on this card;
 bound_ms is the larger of bytes / 3.35 TB/s and operations over the peak
 rate of their type: 67 T/s for float32, 16.75 T/s for int32 and logical
 operations; the channelizers' DFT counts as an M-point FFT at
-5 M log2 M); the last line is {"ok": true, "device": {...}}.  With no
-CUDA device the script exits non-zero before printing any result.
+5 M log2 M; bound_frac = bound_ms / ms); the last line is
+{"ok": true, "device": {...}}.
+With no CUDA device the script exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -601,10 +606,13 @@ def kernel_checks(fe, xb):
         plain_ms=time_ms(lambda: pfb_kernel.pfb_channelize_plain(xp, *bank),
                          10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20))
+    for r in rows.values():
+        r["bound_frac"] = r["bound_ms"] / r["ms"]
     for name, r in rows.items():
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-              f"{r['library_ms']}")
+        print(f"{name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {100 * r['bound_frac']:.1f} % of it), "
+              f"library {r['library_ms']}")
     return rows, wd
 
 

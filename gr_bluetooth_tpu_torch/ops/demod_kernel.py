@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from ..utils import cuda_build
+from ..utils.device import fp32_matmul
 from .detect_kernel import pack_bits_words
 
 __all__ = ["atan2_poly", "demod_pack", "demod_pack_plain", "n_groups",
@@ -79,10 +80,9 @@ def _zero_extend(y, width: int):
 
 def demod_pack_plain(yr, yi, gain: float, n_sym: int, taps_re, taps_im,
                      n_k: int, n_data_groups: int | None = None):
-    """Plain PyTorch version of demod_pack (same arguments and results)."""
-    if yr.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    """Plain PyTorch version of demod_pack (same arguments and results);
+    its probe products are FP32 matmuls whatever the caller's TF32
+    setting."""
     C, F = yr.shape
     dev = yr.device
     n_t = n_groups(n_sym, n_k)
@@ -121,8 +121,9 @@ def demod_pack_plain(yr, yi, gain: float, n_sym: int, taps_re, taps_im,
 
     P_r = wr[:, : PROBE_STRIDE * (n_k - 1) + T].unfold(1, T, PROBE_STRIDE)
     P_i = wi[:, : PROBE_STRIDE * (n_k - 1) + T].unfold(1, T, PROBE_STRIDE)
-    rr, ri = P_r @ taps_re, P_r @ taps_im
-    ir, ii = P_i @ taps_re, P_i @ taps_im
+    with fp32_matmul():
+        rr, ri = P_r @ taps_re, P_r @ taps_im
+        ir, ii = P_i @ taps_re, P_i @ taps_im
     pe = (rr - ii) ** 2 + (ri + ir) ** 2               # (C, n_k)
     k_group = PROBE_STRIDE * torch.arange(n_k, device=dev) // GROUP_FRAMES
     pe = torch.where((k_group < n_data_groups)[None, :], pe, 0.0)

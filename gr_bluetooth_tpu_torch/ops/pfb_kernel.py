@@ -19,10 +19,12 @@ mode: (C, n) streams with n = n_x - 2Q, the output of
 gr_bluetooth_tpu/ops/pfb.py:_pfb_impl for flat planes.
 
 CUDA kernels: csrc/pfb_snr.cu and csrc/pfb_channelize.cu, which share
-their FIR + DFT body (csrc/pfb_tile.cuh; see the sources' notes for the
-bounds).  The plain PyTorch versions below compute the same functions
-and run for tensors on the CPU; they are also the kernels' yardsticks on
-the card.
+their body (csrc/pfb_tile.cuh): persistent blocks, the branch FIRs on
+the CUDA cores and the DFT on the tensor cores in split TF32 (three
+passes, FP32-class accuracy); see the sources' notes for the bounds.
+The plain PyTorch versions below compute the same functions in FP32 and
+run for tensors on the CPU; they are also the kernels' yardsticks on the
+card.
 """
 from __future__ import annotations
 
@@ -31,11 +33,13 @@ import ctypes
 import torch
 
 from ..utils import cuda_build
+from ..utils.device import fp32_matmul
 
-__all__ = ["TF", "pfb_channelize", "pfb_channelize_plain", "pfb_snr",
-           "pfb_snr_plain"]
+__all__ = ["QTAPS", "TF", "branch_fir", "pfb_channelize",
+           "pfb_channelize_plain", "pfb_snr", "pfb_snr_plain"]
 
 TF = 50            # frames per tile (csrc/pfb_snr.cu TF); divides slot_ch
+QTAPS = 7          # the kernels' taps per branch (csrc/pfb_tile.cuh QTAPS)
 
 
 def _check_bank(what, x, h0, h1, dft_c, dft_s, bin_odd):
@@ -50,6 +54,11 @@ def _check_bank(what, x, h0, h1, dft_c, dft_s, bin_odd):
     if h1.shape != (Q, D) or dft_c.shape[0] != 2 * D or \
             dft_s.shape != dft_c.shape or bin_odd.shape != dft_c.shape[1:]:
         raise ValueError(f"{what}: inconsistent bank shapes")
+    if x.device.type == "cuda" and Q != QTAPS:
+        # every bank that ops/pfb.py:make_pfb_bank builds has Q = 7; the
+        # plain versions take any Q
+        raise ValueError(f"{what}: the CUDA kernel takes banks of {QTAPS} "
+                         f"taps per branch, got {Q}")
 
 
 def _check(x, h0, h1, dft_c, dft_s, bin_odd, n_frames):
@@ -125,13 +134,10 @@ def pfb_snr(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
 pfb_snr.launches = 0
 
 
-def pfb_channelize_plain(xp, h0, h1, dft_c, dft_s, bin_odd):
-    """Plain PyTorch version of pfb_channelize (same arguments and
-    results): gr_bluetooth_tpu/ops/pfb.py:_pfb_impl's flat formulation,
-    Q shifted multiply-adds along frames, then the DFT as matmuls."""
-    if xp.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+def branch_fir(xp, h0, h1):
+    """The branch FIRs of pfb_channelize_plain: (2, D, n_x) branch rows ->
+    u (2, M, n), n = n_x - 2Q; branch d < D takes h0 at frame offsets
+    2q, branch D + d takes h1 at offsets 2q + 1."""
     Q, D = h0.shape
     n = xp.shape[2] - 2 * Q
     v0 = torch.zeros((2, D, n), dtype=torch.float32, device=xp.device)
@@ -139,9 +145,19 @@ def pfb_channelize_plain(xp, h0, h1, dft_c, dft_s, bin_odd):
     for q in range(Q):
         v0 = v0 + xp[:, :, 2 * q: 2 * q + n] * h0[q][None, :, None]
         v1 = v1 + xp[:, :, 2 * q + 1: 2 * q + 1 + n] * h1[q][None, :, None]
-    u = torch.cat([v0, v1], dim=1)                     # (2, M, n)
-    yr = dft_c.T @ u[0] + dft_s.T @ u[1]               # (C, n)
-    yi = dft_c.T @ u[1] - dft_s.T @ u[0]
+    return torch.cat([v0, v1], dim=1)
+
+
+def pfb_channelize_plain(xp, h0, h1, dft_c, dft_s, bin_odd):
+    """Plain PyTorch version of pfb_channelize (same arguments and
+    results): gr_bluetooth_tpu/ops/pfb.py:_pfb_impl's flat formulation,
+    Q shifted multiply-adds along frames, then the DFT as FP32 matmuls
+    (whatever the caller's TF32 setting)."""
+    n = xp.shape[2] - 2 * h0.shape[0]
+    u = branch_fir(xp, h0, h1)                         # (2, M, n)
+    with fp32_matmul():
+        yr = dft_c.T @ u[0] + dft_s.T @ u[1]           # (C, n)
+        yi = dft_c.T @ u[1] - dft_s.T @ u[0]
     odd = (torch.arange(n, device=xp.device) & 1).to(torch.float32)
     sign = 1.0 - 2.0 * (bin_odd[:, None] * odd[None, :])
     return (yr * sign).contiguous(), (yi * sign).contiguous()

@@ -43,6 +43,12 @@ def fe8(cuda):
     return FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=6)
 
 
+def _bank(fs, center, device):
+    b = pfb.make_pfb_bank(fs, center)
+    return [torch.from_numpy(a.copy()).to(device)
+            for a in (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
+
+
 def _popcount_diff(a, b):
     return int(detect_kernel.popcount((a ^ b).to(torch.int64) & 0xFFFFFFFF)
                .sum().item())
@@ -54,21 +60,71 @@ def test_kernels_build(cuda):
     assert all(p.exists() for p in libs.values())
 
 
-def test_pfb_snr_kernel_matches_plain(cuda):
-    b = pfb.make_pfb_bank(20e6, 2450e6)
-    bank = [torch.from_numpy(a.copy()).to(cuda)
-            for a in (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
-    r = np.random.default_rng(0)
-    x = torch.from_numpy(r.normal(0, 0.5, (2, 123457)).astype(np.float32))
-    x = x.to(cuda)
-    n_frames = 6200                    # past the data: frames read zeros
+# the banks the channelizer kernels branch on: 8 and 20 Msps (few bins,
+# branches padded to the mma depth), full band, and 128 Msps (W too large
+# for one block's shared memory: the bins split over two or more groups)
+BANKS = [(8e6, 2441e6), (20e6, 2450e6), (80e6, 2441e6), (128e6, 2441e6)]
+
+
+@pytest.mark.parametrize("fs,center", BANKS)
+def test_pfb_snr_kernel_matches_plain(cuda, fs, center):
+    """Frames past the data read zeros; 400 tiles, more than the
+    persistent grid has blocks at 80 and 128 Msps."""
+    bank = _bank(fs, center, cuda)
+    D = bank[0].shape[1]
+    r = np.random.default_rng(int(fs) // 1000)
+    x = torch.from_numpy(r.normal(0, 0.5, (2, 19_000 * D + 17)).astype(
+        np.float32)).to(cuda)
+    n_frames = 20_000
     before = pfb_kernel.pfb_snr.launches
     yr, yi, oe = pfb_kernel.pfb_snr(x, *bank, n_frames)
     assert pfb_kernel.pfb_snr.launches == before + 1
     pr, pi, poe = pfb_kernel.pfb_snr_plain(x, *bank, n_frames)
+    assert oe.shape == poe.shape == (bank[2].shape[1], n_frames // 50)
     torch.testing.assert_close(yr, pr, atol=2e-5, rtol=0)
     torch.testing.assert_close(yi, pi, atol=2e-5, rtol=0)
     torch.testing.assert_close(oe, poe, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("allow", [False, True])
+@pytest.mark.parametrize("plain", ["pfb_channelize_plain", "pfb_snr_plain",
+                                   "demod_pack_plain"])
+def test_plain_versions_keep_the_callers_tf32_flags(cuda, plain, allow):
+    """Each plain version leaves both TF32 flags as the caller set them,
+    and its matmuls run in FP32 either way (equal results)."""
+    bank = _bank(8e6, 2441e6, cuda)
+    D = bank[0].shape[1]
+    r = np.random.default_rng(7)
+    if plain == "demod_pack_plain":
+        sc = snr.make_stream_snr_consts(pfb.make_pfb_bank(8e6, 2441e6))
+        y = torch.from_numpy(r.normal(0, 1, (2, 9, 5000)).astype(
+            np.float32)).to(cuda)
+        args = (y[0], y[1], 1.27, 2000,
+                *[torch.from_numpy(a.copy()).to(cuda)
+                  for a in (sc.taps_re, sc.taps_im)], 100)
+        fn = demod_kernel.demod_pack_plain
+    else:
+        x = torch.from_numpy(r.normal(0, 0.5, (2, 3000 * D)).astype(
+            np.float32)).to(cuda)
+        if plain == "pfb_snr_plain":
+            args, fn = (x, *bank, 2950), pfb_kernel.pfb_snr_plain
+        else:
+            args = (pfb.deinterleave_plain(x, D), *bank)
+            fn = pfb_kernel.pfb_channelize_plain
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = False
+        ref = fn(*args)
+        for f in flags:
+            f.allow_tf32 = allow
+        got = fn(*args)
+        assert [f.allow_tf32 for f in flags] == [allow, allow]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_demod_pack_kernel_matches_plain(cuda):
@@ -201,16 +257,12 @@ def test_stream_with_le_matches_stream_sync_on_card(cuda):
     chip_smoke.compare_chains(fe, flat, fused, x.shape[0])
 
 
-def _bank(fs, center, device):
-    b = pfb.make_pfb_bank(fs, center)
-    return [torch.from_numpy(a.copy()).to(device)
-            for a in (b.h0, b.h1, b.dft_c, b.dft_s, b.bin_odd)]
-
-
-@pytest.mark.parametrize("n", [1, 37, 50, 1000, 1234])
-def test_pfb_channelize_kernel_matches_plain(cuda, n):
-    """Below one tile, whole tiles and a ragged last tile."""
-    bank = _bank(20e6, 2450e6, cuda)
+@pytest.mark.parametrize("fs,center", BANKS)
+@pytest.mark.parametrize("n", [1, 37, 50, 1000, 1234, 100_000])
+def test_pfb_channelize_kernel_matches_plain(cuda, n, fs, center):
+    """Below one tile, whole tiles, a ragged last tile, and more tiles
+    than the persistent grid has blocks."""
+    bank = _bank(fs, center, cuda)
     Q, D = bank[0].shape
     r = np.random.default_rng(n)
     xp = torch.from_numpy(r.normal(0, 0.5, (2, D, n + 2 * Q)).astype(
@@ -220,6 +272,25 @@ def test_pfb_channelize_kernel_matches_plain(cuda, n):
     assert pfb_kernel.pfb_channelize.launches == before + 1
     pr, pi = pfb_kernel.pfb_channelize_plain(xp, *bank)
     assert yr.shape == pr.shape == (bank[2].shape[1], n)
+    torch.testing.assert_close(yr, pr, atol=2e-5, rtol=0)
+    torch.testing.assert_close(yi, pi, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_pfb_channelize_kernel_reads_rows_at_any_alignment(cuda, offset):
+    """Branch rows that start `offset` floats past a 16-byte boundary (a
+    contiguous view into a larger buffer): the kernel's 16-byte window
+    copies realign per row."""
+    bank = _bank(80e6, 2441e6, cuda)
+    Q, D = bank[0].shape
+    n_x = 1000 + 2 * Q
+    r = np.random.default_rng(offset)
+    buf = torch.from_numpy(r.normal(0, 0.5, 2 * D * n_x + offset).astype(
+        np.float32)).to(cuda)
+    xp = buf[offset:].view(2, D, n_x)
+    assert xp.data_ptr() % 16 == 4 * offset
+    yr, yi = pfb_kernel.pfb_channelize(xp, *bank)
+    pr, pi = pfb_kernel.pfb_channelize_plain(xp, *bank)
     torch.testing.assert_close(yr, pr, atol=2e-5, rtol=0)
     torch.testing.assert_close(yi, pi, atol=2e-5, rtol=0)
 
@@ -265,6 +336,14 @@ def test_flat_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError):
         pfb_kernel.pfb_channelize(torch.zeros((2, D, 50), device=cuda),
                                   *[t.cpu() for t in bank])
+    # the kernels take Q = QTAPS taps per branch, as every bank has
+    short = [bank[0][:5], bank[1][:5], *bank[2:]]
+    with pytest.raises(ValueError, match="taps per branch"):
+        pfb_kernel.pfb_channelize(torch.zeros((2, D, 50), device=cuda),
+                                  *short)
+    with pytest.raises(ValueError, match="taps per branch"):
+        pfb_kernel.pfb_snr(torch.zeros((2, 100 * D), device=cuda), *short,
+                           50)
 
 
 @pytest.mark.parametrize("C,n", [(3, 1), (5, 37), (7, 1234), (79, 43054)])
