@@ -17,8 +17,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        detect_words    exact
        deinterleave    exact
        pfb_channelize  y within 2e-5
-   and time each with CUDA events beside the plain version and, where
-   one PyTorch call computes the same function, beside that call (a
+   and time each (device time per launch from a CUDA graph of 20
+   launches, replayed; and per back-to-back wrapper call, host time
+   included) beside the plain version and, where one PyTorch call
+   computes the same function, beside that call (a
    cuDNN conv1d for the two channelizers, one reshape-transpose copy for
    deinterleave); then time the block's whole device step on each of the
    two chains and profile a few steps of each: the fused chain
@@ -79,11 +81,13 @@ After the build it prints each kernel's registers, shared memory and
 spills (nvcc -Xptxas -v).
 
 The next-to-last line is {"kernels": [...]}, one row per kernel and one
-for detect_words with emit_err (times in ms on this card;
-bound_ms is the larger of bytes / 3.35 TB/s and operations over the peak
-rate of their type: 67 T/s for float32, 16.75 T/s for int32 and logical
-operations; the channelizers' DFT counts as an M-point FFT at
-5 M log2 M; bound_frac = bound_ms / ms); the last line is
+for detect_words with emit_err (times in ms on this card: ms from graph
+replay, call_ms per wrapper call; bound_ms is the larger of bytes /
+3.35 TB/s and operations over the peak rate of their type: 67 T/s for
+float32, 16.75 T/s for int32 and logical instructions; the channelizers'
+DFT counts as an M-point FFT at 5 M log2 M, the detector as this card's
+LOP3 and SHF instructions (detect_instr_per_word); bound_frac =
+bound_ms / ms); the last line is
 {"ok": true, "device": {...}}.
 With no CUDA device the script exits non-zero before printing any
 result.
@@ -385,6 +389,35 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time per call of fn: reps calls captured in one CUDA graph,
+    replayed, timed with CUDA events; unlike time_ms, no host time
+    between launches (a wrapper call costs the host tens of
+    microseconds, more than the shortest kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / (replays * reps)
+    del g
+    return ms
+
+
 def bound(n_bytes: float, n_ops: float, ops_rate: float = FP32_OPS):
     tb, to = n_bytes / HBM_BPS * 1e3, n_ops / ops_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -417,6 +450,83 @@ def _csa_ops(n_planes: int) -> int:
             ops += 2
         w += 1
     return ops
+
+
+def _csa_instr(n_planes: int) -> int:
+    """LOP3 instructions of the carry-save popcount of n one-bit planes
+    as csrc/detect_words.cu:count takes it: two per full adder (XOR3 and
+    majority), two per half adder (XOR and AND)."""
+    n, instr = n_planes, 0
+    while n > 1:
+        full = (n - 1) // 2 if n >= 3 else 0
+        half = int(n - 2 * full == 2)
+        instr += 2 * (full + half)
+        n = full + half                   # carries: the next weight
+    return instr
+
+
+def detect_instr_per_word(max_err: int, symbols=range(68)) -> dict:
+    """This card's instructions (SHF for a funnel shift, LOP3 for any
+    function of up to three inputs) that the bit-sliced detector needs
+    for one 32-offset word, by part: "shf" the 65 views v_j with j % 32
+    != 0; "pred" the error planes of `symbols` (all 68 by default): row
+    j's plane v_j ^ pred_j is an XOR of popcount(row) + 1 terms, the
+    complement C68[j] free inside a LOP3, a LAP symbol's own plane zero,
+    and rows with equal masks share their LAP chain, so a group of g
+    rows with p-term masks costs min(g ceil(p / 2), ceil((p - 1) / 2) +
+    g); "csa" the popcount of the error planes; "gate" the preamble's and
+    Barker's popcounts (6 and 8) and 6 for pre + bark <= 2; "le" err <=
+    max_err over the 7 counter planes (2 per set bit of max_err, 1 per
+    clear one) and the hit AND.  The tail mask (one word per row) is not
+    counted.  "total" is their sum over all 68 symbols."""
+    a68, c68 = detect_kernel.A68, detect_kernel.C68V
+    rows = [int(sum(int(b) << k for k, b in enumerate(a68[j])))
+            for j in range(68)]
+    planes = [j for j in range(68)
+              if not (38 <= j < 62 and not int(c68[j]) & 1 and
+                      rows[j] == 1 << (j - 38))]
+    groups: dict = {}
+    for j in planes:
+        if j in symbols:
+            groups.setdefault(rows[j], []).append(j)
+    pred = 0
+    for row, js in groups.items():
+        p, g = bin(row).count("1"), len(js)
+        pred += min(g * -(-p // 2), -(-(p - 1) // 2) + g)
+    k = min(max(max_err, 0), 127)
+    parts = dict(shf=sum(1 for j in range(68) if j % 32), pred=pred,
+                 csa=_csa_instr(len(planes)),
+                 gate=_csa_instr(5) + _csa_instr(7) + 6,
+                 le=sum(2 if (k >> b) & 1 else 1 for b in range(7)) + 1)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+# demod_pack's arithmetic, in instructions per lane, as
+# csrc/demod_pack.cu issues it: a discriminator frame (4 shared loads, 6
+# products, atan2_poly with its two IEEE divisions (fast path, range test),
+# the gain and a store: 60); a symbol's 16 metric terms (21 products, 14
+# adds and 16 accumulating adds) and its slice and pack (6); a probe tap
+# of one grid point (2 shared loads, 4 FMAs); a warp's transposing
+# butterfly of 16 sums (15 x 2 selects, a shuffle and an add)
+DEMOD_FRAME, DEMOD_SYMBOL, DEMOD_TAP, DEMOD_BUTTERFLY = 60, 51 + 6, 6, 60
+# one instruction per scheduler and clock, four schedulers per SM, at the
+# clock the float32 peak assumes (67 TFLOP/s = 132 SMs x 128 lanes x 2 x
+# 1.98 GHz)
+WARP_INSTR_RATE = 132 * 4 * 1.98e9
+
+
+def demod_instr(C: int, n_groups: int, n_k: int, T: int) -> float:
+    """Warp instructions demod_pack issues for C rows of n_groups groups
+    and n_k probe points of T taps (padded to whole lanes): the
+    arithmetic alone, no copies, barriers or address arithmetic."""
+    # each of the 4 warps runs one butterfly for the metrics and one for
+    # its probe points
+    per_group = (demod_kernel.GROUP_FRAMES * DEMOD_FRAME / 32 +
+                 demod_kernel.GROUP * DEMOD_SYMBOL / 32 +
+                 2 * 4 * DEMOD_BUTTERFLY)
+    taps = -(-T // 32) * 32
+    return C * (n_groups * per_group + n_k * taps * DEMOD_TAP / 32)
 
 
 def detect_ops_per_word(max_err: int) -> int:
@@ -479,7 +589,8 @@ def kernel_checks(fe, xb):
     b_ms, b_by = bound(nbytes, flops)
     rows["pfb_snr"] = dict(
         max_abs_err=err_y,
-        ms=time_ms(lambda: pfb_kernel.pfb_snr(xb, *bank, n_frames), 50),
+        ms=graph_ms(lambda: pfb_kernel.pfb_snr(xb, *bank, n_frames)),
+        call_ms=time_ms(lambda: pfb_kernel.pfb_snr(xb, *bank, n_frames), 50),
         plain_ms=time_ms(lambda: pfb_kernel.pfb_snr_plain(xb, *bank,
                                                           n_frames), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20))
@@ -515,10 +626,15 @@ def kernel_checks(fe, xb):
     ops = C * (F_read * 32 + n_groups * demod_kernel.GROUP * 84 + n_k * T * 8)
     nbytes = 2 * C * F_read * 4 + words.numel() * 4 + pe.numel() * 4
     b_ms, b_by = bound(nbytes, ops)
+    instr = demod_instr(C, n_groups, n_k, T)
+    print(f"demod_pack: instruction estimate {instr:.4g} warp instructions "
+          f"= {instr / WARP_INSTR_RATE * 1e3:.4f} ms at 4 per SM and clock, "
+          f"beside its byte bound {b_ms:.4f} ms")
     rows["demod_pack"] = dict(
         max_abs_err=float((pe - ppe).abs().max().item()),
         mismatched_symbols=int(diff),
-        ms=time_ms(lambda: demod_kernel.demod_pack(*args), 50),
+        ms=graph_ms(lambda: demod_kernel.demod_pack(*args)),
+        call_ms=time_ms(lambda: demod_kernel.demod_pack(*args), 50),
         plain_ms=time_ms(lambda: demod_kernel.demod_pack_plain(*args), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -534,16 +650,21 @@ def kernel_checks(fe, xb):
           f"words (exact required); {int(detect_kernel.popcount(hit.to(torch.int64) & 0xFFFFFFFF).sum().item())} "
           f"hits, {int(detect_kernel.popcount(gate.to(torch.int64) & 0xFFFFFFFF).sum().item())} gates")
     assert n_diff == 0
-    # the bit-sliced form's operations, 32 offsets per word, at the int32
-    # rate (this kernel's one-offset-per-thread form spends more)
-    ops = hit.numel() * detect_ops_per_word(s["max_ac_errors"])
+    # the bit-sliced form's instructions on this card (LOP3, SHF), 32
+    # offsets per word, at the int32 rate
+    parts = detect_instr_per_word(s["max_ac_errors"])
+    ops = hit.numel() * parts["total"]
     nbytes = wd.numel() * 4 + 2 * hit.numel() * 4
     b_ms, b_by = bound(nbytes, ops, INT32_OPS)
-    print(f"detect_words: {detect_ops_per_word(s['max_ac_errors'])} int32 "
-          f"operations per 32-offset word, {ops:.4g} in all")
+    two = detect_ops_per_word(s["max_ac_errors"])
+    print(f"detect_words: {parts['total']} LOP3/SHF instructions per "
+          f"32-offset word ({parts}), {ops:.4g} in all, bound "
+          f"{b_ms:.4f} ms; as two-input operations {two} per word, "
+          f"{two * hit.numel() / INT32_OPS * 1e3:.4f} ms")
     rows["detect_words"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: detect_kernel.detect_words(*dargs), 50),
+        ms=graph_ms(lambda: detect_kernel.detect_words(*dargs)),
+        call_ms=time_ms(lambda: detect_kernel.detect_words(*dargs), 50),
         plain_ms=time_ms(lambda: detect_kernel.detect_words_plain(*dargs),
                          10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -563,8 +684,10 @@ def kernel_checks(fe, xb):
     b_ms, b_by = bound(nbytes, ops, INT32_OPS)
     rows[DETECT_ERR] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: detect_kernel.detect_words(*dargs, emit_err=True),
-                   50),
+        ms=graph_ms(lambda: detect_kernel.detect_words(*dargs,
+                                                        emit_err=True)),
+        call_ms=time_ms(lambda: detect_kernel.detect_words(
+            *dargs, emit_err=True), 50),
         plain_ms=time_ms(lambda: detect_kernel.detect_words_plain(
             *dargs, emit_err=True), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -582,7 +705,8 @@ def kernel_checks(fe, xb):
     b_ms, b_by = bound(2 * xp.numel() * 4, 0)
     rows["deinterleave"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: pfb.deinterleave(xb, D), 50),
+        ms=graph_ms(lambda: pfb.deinterleave(xb, D)),
+        call_ms=time_ms(lambda: pfb.deinterleave(xb, D), 50),
         plain_ms=time_ms(lambda: pfb.deinterleave_plain(xb, D), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib6, 50))
 
@@ -602,14 +726,16 @@ def kernel_checks(fe, xb):
     b_ms, b_by = bound(xp.numel() * 4 + 2 * C * n5 * 4, flops)
     rows["pfb_channelize"] = dict(
         max_abs_err=err_c,
-        ms=time_ms(lambda: pfb_kernel.pfb_channelize(xp, *bank), 50),
+        ms=graph_ms(lambda: pfb_kernel.pfb_channelize(xp, *bank)),
+        call_ms=time_ms(lambda: pfb_kernel.pfb_channelize(xp, *bank), 50),
         plain_ms=time_ms(lambda: pfb_kernel.pfb_channelize_plain(xp, *bank),
                          10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, 20))
     for r in rows.values():
         r["bound_frac"] = r["bound_ms"] / r["ms"]
     for name, r in rows.items():
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain "
+        print(f"{name}: kernel {r['ms']:.4f} ms (graph replay; "
+              f"{r['call_ms']:.4f} ms per wrapper call), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_frac']:.1f} % of it), "
               f"library {r['library_ms']}")
@@ -1077,8 +1203,8 @@ def main() -> int:
         for name, t in prof.items():
             rows[name].setdefault("profiler_ms", t)
             print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA "
-                  f"events, back-to-back wrapper calls), {t:.4f} ms device "
-                  f"time (profiler, in the {chain} step)")
+                  f"graph replay), {t:.4f} ms device time (profiler, in "
+                  f"the {chain} step)")
     launches = main_path(survey, N_BLOCKS)
     flat_launches = flat_path(fe_le, N_BLOCKS)
     for k in FLAT[:2]:

@@ -145,7 +145,9 @@ def demod_pack(yr, yi, gain: float, n_sym: int, taps_re, taps_im,
     words (C, ceil(n_sym/32)) int32 packed symbols, pe (C, n_k) float32
     probe energies.  n_data_groups defaults to the groups that start
     inside the stream.  A CPU tensor runs the plain version; a CUDA
-    tensor launches csrc/demod_pack.cu (counted in demod_pack.launches)."""
+    tensor launches csrc/demod_pack.cu (counted in demod_pack.launches),
+    whose launcher refuses a probe longer than its TMAX taps (every
+    bank's probe has 201, ops/snr.py)."""
     for name, t in (("yr", yr), ("yi", yi), ("taps_re", taps_re),
                     ("taps_im", taps_im)):
         if t.dtype != torch.float32 or t.device != yr.device:

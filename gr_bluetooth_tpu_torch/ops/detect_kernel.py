@@ -21,9 +21,11 @@ gated_error and classic_detect_words are the dense entry points over the
 error planes (gr_bluetooth_tpu/ops/detect_pallas.py:gated_error and
 classic_detect_pallas).
 
-CUDA kernel: csrc/detect_words.cu.  The plain PyTorch version below runs
-for CPU tensors and is the kernel's yardstick on the card; it works in
-int64 because torch has no popcount and no logical shift on int32.
+CUDA kernel: csrc/detect_words.cu, with A68/C68 compiled in
+(csrc/ac_table.cuh); on a CUDA tensor the masks must equal ac_masks().
+The plain PyTorch version below runs for CPU tensors and is the kernel's
+yardstick on the card; it works in int64 because torch has no popcount
+and no logical shift on int32.
 """
 from __future__ import annotations
 
@@ -136,9 +138,21 @@ def _launcher():
     fn = cuda_build.load("detect_words").detect_words_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, I, I, P, P, I, I, P]
+        fn.argtypes = [P, I, I, I, I, P, I, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_masks(masks):
+    """The kernel has the map compiled in, so the masks it is handed must
+    be ac_masks().  Compared once per tensor and version (one device
+    sync), remembered on the tensor."""
+    if getattr(masks, "_ac_masks_version", None) == masks._version:
+        return
+    if not torch.equal(masks.cpu(), torch.from_numpy(ac_masks())):
+        raise ValueError("detect_words: the CUDA kernel has the access-code "
+                         "map of ac_masks() compiled in; these masks differ")
+    masks._ac_masks_version = masks._version
 
 
 def detect_words(words, n: int, max_ac_errors: int, masks,
@@ -149,7 +163,8 @@ def detect_words(words, n: int, max_ac_errors: int, masks,
     and, with emit_err, the (7, C, ceil(n/32)) error-count planes (else
     None).  A CPU tensor runs the plain version; a CUDA tensor launches
     csrc/detect_words.cu, counted in detect_words.launches (hit and gate
-    only, the modes' path) or detect_words.err_launches (emit_err)."""
+    only, the modes' path) or detect_words.err_launches (emit_err), and
+    raises if the masks are not ac_masks()."""
     if words.dtype != torch.int32 or words.ndim != 2:
         raise TypeError("detect_words: words must be (C, W) int32")
     if masks.dtype != torch.int32 or masks.shape != (75,) or \
@@ -162,6 +177,7 @@ def detect_words(words, n: int, max_ac_errors: int, masks,
         return detect_words_plain(words, n, max_ac_errors, masks, emit_err)
     if words.device.type != "cuda":
         raise ValueError(f"detect_words: unsupported device {words.device}")
+    _check_masks(masks)
     C, W = words.shape
     words = words.contiguous()
     n_words = -(-n // 32)
@@ -169,8 +185,7 @@ def detect_words(words, n: int, max_ac_errors: int, masks,
                          dtype=torch.int32, device=words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     rc = _launcher()(words.data_ptr(), C, W, n, int(max_ac_errors),
-                     masks.data_ptr(), planes.data_ptr(), n_words,
-                     int(emit_err), stream)
+                     planes.data_ptr(), n_words, int(emit_err), stream)
     cuda_build.check(rc, "detect_words")
     if emit_err:
         detect_words.err_launches += 1

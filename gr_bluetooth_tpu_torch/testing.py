@@ -19,7 +19,8 @@ from .ops import synth
 
 __all__ = ["PiconetSim", "make_piconet_capture", "make_aliased_capture",
            "make_multi_piconet_capture",
-           "LeConnectionSim", "make_le_connection_capture"]
+           "LeConnectionSim", "make_le_connection_capture",
+           "make_tied_streams"]
 
 
 @dataclass
@@ -283,3 +284,28 @@ def make_le_connection_capture(sim: LeConnectionSim, n_slots: int, fs: float,
                                        fs=fs, center_freq=center_freq,
                                        noise_std=noise_std, seed=seed)
     return samples, sent
+
+
+def make_tied_streams(n_frames: int, seed: int = 0):
+    """Three channel-stream rows on which the 16 timing metrics of the
+    demod (ops/demod_kernel.py) tie exactly, at the 4/pi gain of every
+    bank, to pin the earliest-hypothesis rule:
+
+    row 0: zeros, so d = 0 and every metric is 0 (hypothesis 0 wins);
+    row 1: phase steps of +-pi/2 (y in {1, i, -1, -i}, products exact),
+           so every d is +-2 and every interpolated |d| a multiple of 1/4:
+           hypotheses 0 and 8 (f = 0) tie at the maximum, every sum exact
+           in any order; the earliest, 0, slices the even frames' steps,
+           8 would slice the odd ones';
+    row 2: a random phase walk.
+
+    Returns (yr, yi) float32 (3, n_frames) and row 1's steps (n_frames -
+    1,) of +-1: d[l] = 2 steps[l]."""
+    r = np.random.default_rng(seed)
+    steps = r.choice(np.array([-1, 1]), n_frames - 1)
+    k = np.concatenate([[0], np.cumsum(steps)]) % 4
+    y = np.zeros((3, n_frames), np.complex64)
+    y[1] = np.array([1, 1j, -1, -1j], np.complex64)[k]
+    y[2] = np.exp(1j * np.cumsum(r.normal(0, 0.8, n_frames)))
+    return (np.ascontiguousarray(y.real, np.float32),
+            np.ascontiguousarray(y.imag, np.float32), steps)

@@ -151,6 +151,153 @@ def test_demod_pack_kernel_matches_plain(cuda):
             assert bool((words[:, 5 * 16: -1] == -1).all())
 
 
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("n_data", [None, 40])
+def test_demod_pack_kernel_at_full_band_shape(cuda, n_data, shift):
+    """80 rows of F = 87,050 frames (odd rows 8-byte aligned; with shift 1
+    every row one float further, so rows sit at all four alignments), 85
+    groups, a tail word; n_data_groups by default and short (groups 40 to
+    84 all ones, their probe energies zero)."""
+    sc = snr.make_stream_snr_consts(pfb.make_pfb_bank(80e6, 2441e6))
+    taps = [torch.from_numpy(a.copy()).to(cuda)
+            for a in (sc.taps_re, sc.taps_im)]
+    r = np.random.default_rng(5 + shift)
+    C, F = 80, 87_050
+    ph = np.cumsum(r.normal(0, 0.8, (C, F)), axis=1)
+    y = np.exp(1j * ph) + 0.05 * (r.normal(size=(C, F)) +
+                                  1j * r.normal(size=(C, F)))
+    planes = []
+    for part in (y.real, y.imag):
+        buf = torch.zeros(C * F + shift, device=cuda)
+        buf[shift:] = torch.from_numpy(part.astype(np.float32)).reshape(-1)
+        planes.append(buf[shift:].view(C, F))
+    assert planes[0].data_ptr() % 16 == 4 * shift
+    n_sym, n_k = 43_125, 2151
+    args = (*planes, 1.2732395447351628, n_sym, *taps, n_k, n_data)
+    before = demod_kernel.demod_pack.launches
+    words, pe = demod_kernel.demod_pack(*args)
+    assert demod_kernel.demod_pack.launches == before + 1
+    pw, ppe = demod_kernel.demod_pack_plain(*args)
+    assert words.shape == pw.shape == (C, -(-n_sym // 32))
+    assert _popcount_diff(words, pw) <= max(1, C * n_sym * 1e-5)
+    torch.testing.assert_close(pe, ppe, atol=1e-6, rtol=1e-4)
+    assert bool((words[:, -1] >> (n_sym % 32) == 0).all())
+    if n_data is not None:
+        assert bool((words[:, n_data * 16: -1] == -1).all())
+        assert bool((pe[:, -(-n_data * 1024 // 40):] == 0).all())
+
+
+def test_demod_pack_kernel_keeps_the_earliest_tie(cuda):
+    """Rows whose 16 timing metrics tie exactly (testing.make_tied_streams):
+    all zeros (every hypothesis 0) and +-pi/2 steps (hypotheses 0 and 8
+    tie at the maximum).  The kernel, like torch.argmax and the TPU
+    kernel, takes hypothesis 0: every word equal to the plain version's,
+    the zero row all ones, the step row the even frames' steps."""
+    from gr_bluetooth_tpu_torch.testing import make_tied_streams
+    sc = snr.make_stream_snr_consts(pfb.make_pfb_bank(80e6, 2441e6))
+    taps = [torch.from_numpy(a.copy()).to(cuda)
+            for a in (sc.taps_re, sc.taps_im)]
+    F, n_sym = 20 * 1024 + 200, 20 * 512
+    yr, yi, steps = make_tied_streams(F, seed=3)
+    args = (torch.from_numpy(yr).to(cuda), torch.from_numpy(yi).to(cuda),
+            1.2732395447351628, n_sym, *taps, 400)
+    words, _ = demod_kernel.demod_pack(*args)
+    pw, _ = demod_kernel.demod_pack_plain(*args)
+    assert torch.equal(words, pw)
+    assert bool((words[0] == -1).all())
+    even = detect_kernel.pack_bits_words(
+        torch.from_numpy(steps[0:2 * n_sym:2] > 0)[None]).to(cuda)
+    assert torch.equal(words[1:2], even)
+
+
+@pytest.mark.parametrize("max_ac_errors", [0, 1, 2, 6, 68])
+def test_detect_words_bitsliced_planes_are_exact(cuda, max_ac_errors):
+    """Hit, gate and the 7 error-count planes equal to the plain version
+    with n % 32 != 0 and W short of n_words + 3 (windows read zeros past
+    the words), access codes planted with 0 to 7 errors."""
+    from gr_bluetooth_tpu_torch.core.access_code import ac_bits
+    r = np.random.default_rng(max_ac_errors)
+    C, T = 9, 12_000
+    bits = r.integers(0, 2, (C, T)).astype(np.int64)
+    for i in range(40):
+        ac = ac_bits(int(r.integers(0, 1 << 24)))[:68].copy()
+        ac[r.choice(68, size=i % 8, replace=False)] ^= 1
+        off = int(r.integers(0, T - 68))
+        bits[i % C, off:off + 68] = ac
+    words = detect_kernel.pack_bits_words(torch.from_numpy(bits)).to(cuda)
+    masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    W = words.shape[1] - 2
+    n = W * 32 - 37
+    assert n % 32 and W < -(-n // 32) + 3
+    w = words[:, :W].contiguous()
+    h, g, e = detect_kernel.detect_words(w, n, max_ac_errors, masks,
+                                         emit_err=True)
+    ph, pg, pe = detect_kernel.detect_words_plain(w, n, max_ac_errors, masks,
+                                                  emit_err=True)
+    assert torch.equal(h, ph) and torch.equal(g, pg) and torch.equal(e, pe)
+    h2, g2, none = detect_kernel.detect_words(w, n, max_ac_errors, masks)
+    assert none is None and torch.equal(h2, ph) and torch.equal(g2, pg)
+    assert int(detect_kernel.popcount(ph.to(torch.int64) & 0xFFFFFFFF)
+               .sum()) >= (1 if max_ac_errors == 0 else 5)
+
+
+def test_detect_words_raises_on_masks_other_than_the_compiled_map(cuda):
+    """The kernel has ac_masks() compiled in: other masks raise (checked
+    once per tensor and version); the plain version still takes them."""
+    words = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    masks = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    detect_kernel.detect_words(words, 100, 1, masks)
+    masks[3] ^= 1
+    with pytest.raises(ValueError, match="compiled"):
+        detect_kernel.detect_words(words, 100, 1, masks)
+    other = torch.from_numpy(detect_kernel.ac_masks()).to(cuda)
+    other[74] ^= 4
+    with pytest.raises(ValueError, match="compiled"):
+        detect_kernel.detect_words(words, 100, 1, other)
+    detect_kernel.detect_words_plain(words, 100, 1, other)
+
+
+def test_demod_pack_raises_on_a_longer_probe(cuda):
+    """The launcher refuses a probe longer than the kernel's TMAX (224)
+    taps; every bank's probe has 201."""
+    y = torch.zeros((2, 3000), device=cuda)
+    taps = torch.zeros(225, device=cuda)
+    with pytest.raises(RuntimeError, match="demod_pack"):
+        demod_kernel.demod_pack(y, y, 1.0, 1000, taps, taps, 10)
+
+
+def test_demod_pack_kernel_is_exact_at_extreme_magnitudes(cuda):
+    """The discriminator's divisions over operands far from unit scale:
+    rows whose products |y[l+1] y[l]| straddle 2^-60 and 2^60, sit just
+    inside them, mix exponents from 2^-80 to 2^80 frame by frame (warps
+    with lanes on both sides), or hold zeros and subnormals.  Every word
+    equal to the plain version's."""
+    r = np.random.default_rng(11)
+    C, F = 8, 6 * 1024 + 300
+    ph = r.uniform(-np.pi, np.pi, (C, F))
+    mag = r.uniform(0.5, 2.0, (C, F))
+    exps = np.zeros((C, F))
+    exps[0], exps[1], exps[2], exps[3] = -30, 30, -29, 29
+    exps[4] = r.integers(-40, 41, F)
+    exps[5] = np.where((np.arange(F) // 100) % 2, 35, -35)
+    y = mag * np.exp(1j * ph) * np.exp2(exps)
+    tiny = np.array([0.0, 1e-40, -1e-40, 1e-45, -3e-44, 1.0, -1.0])
+    # a third of the frames replaced (metrics stay far from exact ties)
+    y[6] = np.where(r.random(F) < 0.3,
+                    r.choice(tiny, F) + 1j * r.choice(tiny, F), y[6])
+    y[7] = np.where(r.random(F) < 0.3, 0.0, y[4])
+    yr = torch.from_numpy(y.real.astype(np.float32)).to(cuda)
+    yi = torch.from_numpy(y.imag.astype(np.float32)).to(cuda)
+    assert bool((yr[6] != 0).any()) and bool((yr[6].abs() < 1e-38).any())
+    sc = snr.make_stream_snr_consts(pfb.make_pfb_bank(8e6, 2441e6))
+    taps = [torch.from_numpy(a.copy()).to(cuda)
+            for a in (sc.taps_re, sc.taps_im)]
+    args = (yr, yi, 1.2732395447351628, 3000, *taps, 100)
+    words, _ = demod_kernel.demod_pack(*args)
+    pw, _ = demod_kernel.demod_pack_plain(*args)
+    assert torch.equal(words, pw)
+
+
 @pytest.mark.parametrize("max_ac_errors", [1, 6])
 def test_detect_words_kernel_is_exact(cuda, max_ac_errors):
     from gr_bluetooth_tpu_torch.core.access_code import ac_bits
