@@ -69,7 +69,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       address, CRCInit and hop increment, every data packet followed with
       a good CRC on the channel the follower predicts.
    Each prints host seconds, samples/s to the last result, host decode
-   microseconds per hit and peak device memory.
+   microseconds per hit and peak device memory;
+8. the slice of the CLI, the other rates and the host decode pool:
+   a. `python -m gr_bluetooth_tpu_torch.apps.btrx -r 80e6 -f 2441e6 -S
+      -i - -s --stats -W <tmp>.pcap` as a subprocess fed `max_rate` as
+      int16 wire bytes on stdin, after the native runtime (the port's
+      btio.cc, g++) is built and loaded: at least 249 decoded frames,
+      each a planted (LAP, UAP, type, channel), each logged packet at
+      its air slot (clkn - LOOKAHEAD_SLOTS: the stdin path starts from
+      a zero carry), and the frames, timestamps aside, equal in order
+      to an in-process Sniffer's over the same wire chunks through
+      PipelinedIngest.run; then the same bytes with --live: its
+      overruns and dropped bytes, and with none the same frames, with
+      some every logged packet planted at its air slot or one slot
+      later (a slip rounds dropped air to whole slots);
+   b. LapSurvey(81e6, 2441e6, block_slots=64) over 3 planted blocks:
+      the strided conv bank (cuDNN conv1d, FP32 whatever the TF32
+      flags: checked within 2e-5 of the CPU with cuDNN TF32 on), every
+      planted pair found, detect_words once per block and no other
+      kernel; its step profiled and the conv bank timed against its
+      FP32 operation bound; then 5 Msps on the card against the CPU;
+   c. Sniffer(7.68e6, 2441e6) over a capture resampled to 7.68 Msps
+      (the polyphase bank at 8 Msps on the true band's channels): UAP
+      0x47 decoded, hits equal to the same run on the CPU;
+   d. ParallelHostDecoder(n_workers=4) over phase 7a's fetched blocks
+      against the single-process decode of the same blocks: equal
+      packets per LAP and in order, microseconds per hit of both.
+   Each phase prints its wall time.
 
 Phase 3 also checks detect_words with emit_err (its 7 error-count planes
 exact against the plain version) and times it, and phase 3c runs the
@@ -94,18 +120,24 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
+import os
+import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gr_bluetooth_tpu_torch import testing
-from gr_bluetooth_tpu_torch.constants import LE_ADV_AA, SYMBOLS_PER_SLOT
+from gr_bluetooth_tpu_torch.constants import (LE_ADV_AA, SYMBOLS_PER_SLOT,
+                                              TYPE_NAMES)
 from gr_bluetooth_tpu_torch.core import whitening
 from gr_bluetooth_tpu_torch.core.access_code import ac_bits
 from gr_bluetooth_tpu_torch.models import frontend
@@ -1095,6 +1127,7 @@ def sniffer_phase(name: str, x, sent, sims):
           f"last result; host decode alone {th:.4f} s = "
           f"{th / max(n_hits, 1) * 1e6:.1f} us per hit; peak device memory "
           f"{peak / 2 ** 20:.1f} MiB")
+    return sn.fe, blocks
 
 
 def e2e_phase(x, sent, sim):
@@ -1162,6 +1195,415 @@ def le_phase():
           f"{sum(1 for *_, k in sent if k == 'DATA')} planted; {dt:.4f} s "
           f"host clock; launches {counts}")
 
+# ------------------------------------------------------------------ phase 8
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI = "gr_bluetooth_tpu_torch.apps.btrx"
+LOOKAHEAD = frontend.LOOKAHEAD_SLOTS
+_LOG_PKT = re.compile(r"grbt\.sniffer INFO time\s+(\d+) ch\s+(\d+) LAP "
+                      r"([0-9a-f]{6}) (\S+)")
+
+
+def run_cli(args, stdin: bytes, device=None):
+    """The port's btrx as a subprocess from the checkout's root, fed
+    `stdin`; `device` adds --device.  Returns (CompletedProcess, host
+    seconds)."""
+    cmd = [sys.executable, "-m", CLI, *args]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, input=stdin, capture_output=True, cwd=ROOT,
+                       env=env, timeout=600)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"btrx exit {r.returncode}:\n"
+                           f"{r.stderr.decode()[-3000:]}")
+    return r, dt
+
+
+def stdin_chunks(inter: np.ndarray, step: int, wire: str):
+    """The wire chunks that btrx's stdin path (io/sources.stream_stdin_raw)
+    cuts from a byte stream: `step` samples each from the first byte, the
+    last one padded with the wire's zero byte."""
+    from gr_bluetooth_tpu_torch.io.ingest import WIRE_ZERO_BYTE
+    n = inter.shape[0]
+    for i in range(0, n, step):
+        c = inter[i: i + step]
+        if c.shape[0] < step:
+            pad = np.full((step - c.shape[0],) + c.shape[1:],
+                          WIRE_ZERO_BYTE[wire], c.dtype)
+            c = np.concatenate([c, pad])
+        yield c
+
+
+def frames_decoded(frames):
+    """pcap records (caplen, bytes) -> [(lap, uap, type, channel)] of the
+    decoded-packet frames (dst = NAP:UAP:LAP, tun_format body), ID frames
+    (empty bodies) left out."""
+    out = []
+    for _, f in frames:
+        body = f[14:]
+        if not body:
+            continue
+        dst = int.from_bytes(f[0:6], "big")
+        out.append((dst & 0xFFFFFF, (dst >> 24) & 0xFF,
+                    (body[6] & 0x78) >> 3, body[4]))
+    return out
+
+
+def planted_by_slot(sent, sims):
+    """slot -> (channel, lap, uap, type) of a capture's sent rows
+    ((slot, channel, lap[, type]); DM1 where no type is given)."""
+    uap_of = {s.lap: s.uap for s in sims}
+    return {row[0]: (row[1], row[2], uap_of[row[2]],
+                     row[3] if len(row) > 3 else 3) for row in sent}
+
+
+def check_cli_frames(frames, sent, sims, min_decoded: int):
+    """Every decoded frame is a planted (LAP, UAP, type, channel), at
+    least min_decoded of them.  Returns the decoded count."""
+    planted = {(lap, uap, t, ch)
+               for ch, lap, uap, t in planted_by_slot(sent, sims).values()}
+    dec = frames_decoded(frames)
+    for d in dec:
+        assert d in planted, f"unplanted decoded frame {d}"
+    assert len(dec) >= min_decoded, (len(dec), min_decoded)
+    return len(dec)
+
+
+def logged_packets(stderr: bytes):
+    """[(clkn, channel, lap, type name)] of the sniffer's decoded-packet
+    log lines in a btrx run's stderr."""
+    return [(int(m.group(1)), int(m.group(2)), int(m.group(3), 16),
+             m.group(4)) for m in map(_LOG_PKT.search,
+                                      stderr.decode().splitlines()) if m]
+
+
+def check_air_slots(packets, sent, sims, shift: int = LOOKAHEAD,
+                    slack: int = 0):
+    """Every logged packet is a planted one at its air slot: clkn - shift
+    (a stream that starts from a zero carry reports air slot s at clkn
+    s + LOOKAHEAD_SLOTS), or up to `slack` slots later where a clock slip
+    rounded dropped air to whole slots.  Returns (count, count exactly
+    at the slot)."""
+    planted = planted_by_slot(sent, sims)
+    exact = 0
+    for clkn, ch, lap, tname in packets:
+        t = TYPE_NAMES.index(tname)
+        ok = [d for d in range(slack + 1)
+              if planted.get(clkn - shift + d, (None,) * 4)[:2] == (ch, lap)
+              and planted[clkn - shift + d][3] == t]
+        assert ok, (f"logged packet clkn {clkn} ch {ch} LAP {lap:06x} "
+                    f"{tname} is not planted at its air slot")
+        exact += ok[0] == 0
+    return len(packets), exact
+
+
+def cli_phase(x, sent, sims, device=None, n_min=MIN_DECODED["max_rate"],
+              fs=FS, center=CENTER):
+    """Phase 8a: btrx -S on int16 stdin at full band against the same
+    wire chunks through PipelinedIngest.run in this process (zero carry,
+    as the stdin path starts), then the same bytes with --live."""
+    from gr_bluetooth_tpu_torch.io import ingest, native
+    from gr_bluetooth_tpu_torch.io.writers import PcapWriter
+    lib = native.load()
+    assert lib is not None, "the native runtime did not build"
+    print(f"cli: native runtime {native.library_path()} (g++ build of "
+          f"{os.path.relpath(native.SOURCE, ROOT)}) loaded")
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    inter = ingest.wire_encode(planes, "i16")
+    data = inter.tobytes()
+    n_in = inter.shape[0]
+    args = ["-r", f"{fs:.0f}", "-f", f"{center:.0f}", "-S", "-i", "-", "-s",
+            "--stats"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.pcap")
+                 for k in ("cli", "live", "inproc")}
+        r, dt = run_cli(args + ["-W", paths["cli"]], data, device)
+        print(f"cli: btrx {' '.join(args)}: {dt:.4f} s host clock for "
+              f"{n_in} samples = {n_in / dt:.6g} samples/s (process start, "
+              f"CUDA context and kernel loads included)")
+        frames = pcap_frames(paths["cli"])
+        n_dec = check_cli_frames(frames, sent, sims, n_min)
+        logged = logged_packets(r.stderr)
+        n_log, exact = check_air_slots(logged, sent, sims)
+        assert n_log == n_dec and exact == n_log, (n_log, n_dec, exact)
+
+        sn = Sniffer(fs, center, block_slots=16, bus=EventBus(),
+                     writer=PcapWriter(paths["inproc"]),
+                     device=device or "cuda")
+        pipe = ingest.PipelinedIngest(sn.fe, "i16")
+        t0 = time.perf_counter()
+        sn.run_blocks(pipe.run(stdin_chunks(inter, sn.fe.step_samples,
+                                            "i16"), 0, bus=sn.bus))
+        dt_in = time.perf_counter() - t0
+        sn.writer.close()
+        ref = pcap_frames(paths["inproc"])
+        assert frames == ref, (len(frames), len(ref))
+        print(f"cli: {len(frames)} pcap frames ({n_dec} decoded packets, "
+              f"each a planted (LAP, UAP, type, channel) at its air slot) "
+              f"equal in order to the in-process Sniffer's over the same "
+              f"wire chunks ({dt_in:.4f} s = {n_in / dt_in:.6g} samples/s)")
+
+        rl, dtl = run_cli(args + ["--live", "-W", paths["live"]], data,
+                          device)
+        m = re.search(rb"live source: (\d+) overruns, (\d+) bytes dropped",
+                      rl.stderr)
+        overruns, dropped = (int(m.group(1)), int(m.group(2))) if m else \
+            (0, 0)
+        live = pcap_frames(paths["live"])
+        lp = logged_packets(rl.stderr)
+        if overruns == 0:
+            assert live == frames, "live run without overruns differs"
+            n_l, ex = check_air_slots(lp, sent, sims)
+        else:
+            check_cli_frames(live, sent, sims, 1)
+            n_l, ex = check_air_slots(lp, sent, sims, slack=1)
+        print(f"cli --live: {overruns} overruns, {dropped} bytes dropped; "
+              f"{len(frames_decoded(live))} decoded, {n_l} logged packets "
+              f"each planted at its air slot ({ex} exactly, the rest one "
+              f"slot early after a slip rounded to whole slots); "
+              f"{dtl:.4f} s host clock = {n_in / dtl:.6g} samples/s")
+    return dict(cli_sps=n_in / dt, live_sps=n_in / dtl, overruns=overruns)
+
+
+def pcap_frames(path):
+    """A pcap's records without timestamps: [(caplen, bytes)]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    frames, pos = [], 24
+    while pos < len(data):
+        _, _, caplen, _ = struct.unpack("<IIII", data[pos:pos + 16])
+        frames.append((caplen, data[pos + 16: pos + 16 + caplen]))
+        pos += 16 + caplen
+    return frames
+
+
+# the planted (LAP, channel) pairs of the 81 Msps capture (plant_capture,
+# 3 blocks of 64 slots, seed 3) that the conv bank's step misses: the
+# access code of 0x123456 on channel 0 (slot 10) comes out with 2
+# errors (the survey allows 1), and 0x5A17EC on channel 64 (slot 177) is
+# not detected at all.  The JAX package's LapSurvey misses the same two
+# on this capture, with observations equal to the port's plain versions
+# (tests/oddrate_fullband_check.py), so they are the reference's
+# behaviour, which the port matches (ROADMAP.md §3)
+MISSED_81 = {(0x123456, 0), (0x5A17EC, 64)}
+
+
+def odd_rate_phase(n_blocks: int = N_BLOCKS):
+    """Phase 8b: LapSurvey at 81 Msps (the conv bank, 79 channels) over a
+    planted capture; detect_words once per block and no other kernel;
+    the observations equal to the same survey on the CPU (the plain
+    versions), every one a planted packet, every planted pair found but
+    the two the reference misses (MISSED_81).  The conv bank timed alone
+    against its bound; then 5 Msps on the card against the CPU."""
+    from gr_bluetooth_tpu_torch.ops import channelizer
+    survey = LapSurvey(81e6, CENTER, block_slots=BLOCK_SLOTS)
+    fe = survey.fe
+    assert not fe.is_pfb and fe.bank.n_channels == 79
+    x, planted = plant_capture(fe, n_blocks, seed=3)
+    _zero_counts()
+    t0 = time.perf_counter()
+    obs = list(survey.run(x, emit_console=False))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, peak = _counts(), torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        want = n_blocks if name == "detect_words" else 0
+        assert n == want, (name, counts)
+    cpu = LapSurvey(81e6, CENTER, block_slots=BLOCK_SLOTS, device="cpu")
+    oc = list(cpu.run(x, emit_console=False))
+    key = lambda o: (o.clkn, o.channel, o.lap, o.errors)  # noqa: E731
+    assert [key(o) for o in obs] == [key(o) for o in oc]
+    d_snr = max(abs(a.snr_db - b.snr_db) for a, b in zip(obs, oc))
+    assert d_snr <= 1e-3, d_snr
+    n_found = check_survey(obs, [p for p in planted
+                                 if (p[0], p[1]) not in MISSED_81])
+    seen = {(o.lap, o.channel) for o in obs}
+    assert not MISSED_81 & seen, MISSED_81 & seen
+    n_in = n_blocks * fe.step_samples
+    print(f"odd rate 81 Msps: {n_blocks} blocks, {len(planted)} planted, "
+          f"{n_found} of {n_found + len(MISSED_81)} (LAP, channel) pairs "
+          f"found, the two the reference misses not ("
+          f"{sorted((hex(a), b) for a, b in MISSED_81)}), no unplanted "
+          f"LAP; {len(obs)} observations equal to the CPU's, SNR within "
+          f"{d_snr:.2e} dB; launches {counts}; {dt:.4f} s host clock "
+          f"({n_in / dt:.6g} samples/s, first-call set-up included), peak "
+          f"device memory {peak / 2 ** 20:.1f} MiB")
+    xb = fe.to_planes(x[: fe.block_samples])
+    prof = step_profile("odd rate 81 Msps (conv bank)", fe.device_step, xb,
+                        (detect_kernel.detect_words,))
+    c, s = fe.consts, fe.statics
+    torch.backends.cudnn.allow_tf32 = True        # the guard must hold
+    conv = lambda: channelizer._channelize_impl(  # noqa: E731
+        xb[None], c["kernel"], c["rot_q"], 0, decim=s["decim"], sps=s["sps"])
+    yr, yi = conv()
+    torch.backends.cudnn.allow_tf32 = False
+    pr, pi = channelizer._channelize_impl(
+        xb[None].cpu(), c["kernel"].cpu(), c["rot_q"].cpu(), 0,
+        decim=s["decim"], sps=s["sps"])
+    err = max((yr.cpu() - pr).abs().max().item(),
+              (yi.cpu() - pi).abs().max().item())
+    assert err <= 2e-5, err
+    C2, _, T = c["kernel"].shape
+    n_out = yr.shape[1]
+    flops = C2 * 2 * T * n_out * 2
+    nbytes = xb.numel() * 4 + c["kernel"].numel() * 4 + 2 * yr.numel() * 4
+    b_ms, b_by = bound(nbytes, flops)
+    ms = time_ms(conv, 10)
+    print(f"odd rate 81 Msps conv bank: y {tuple(yr.shape)} within "
+          f"{err:.3e} of the CPU's (cuDNN TF32 on for the process, off "
+          f"inside the guard); {ms:.4f} ms per block (CUDA events), bound "
+          f"{b_ms:.4f} ms by {b_by} ({flops:.4g} FP32 operations = "
+          f"{C2} x 2 x {T} x {n_out} x 2, {nbytes:.4g} bytes)")
+
+    kw = dict(block_slots=8)
+    gpu = LapSurvey(5e6, CENTER, **kw)
+    cpu = LapSurvey(5e6, CENTER, device="cpu", **kw)
+    x5, planted5 = plant_capture(gpu.fe, 2, seed=5)
+    og = gpu.run(x5, emit_console=False)
+    oc = cpu.run(x5, emit_console=False)
+    key = lambda o: (o.clkn, o.channel, o.lap, o.errors)  # noqa: E731
+    assert [key(o) for o in og] == [key(o) for o in oc]
+    d = max((abs(a.snr_db - b.snr_db) for a, b in zip(og, oc)), default=0.0)
+    assert d <= 1e-3, d
+    n = check_survey(og, planted5)
+    print(f"odd rate 5 Msps: {len(og)} observations equal on the card and "
+          f"the CPU, SNR within {d:.2e} dB, {n} pairs found")
+    return dict(conv_ms=ms, conv_bound_ms=b_ms, profile=prof)
+
+
+class OneChannelSim(testing.PiconetSim):
+    """A master on channel 39 (the centre) in every slot."""
+
+    def channel_at(self, slot):
+        return 39
+
+
+def offgrid_capture(fs: float, n_slots: int, seed: int = 5):
+    """A piconet capture (LAP 0x24D952, UAP 0x47, a DM1 every other slot
+    on channel 39) at an off-grid rate: synthesized at the next integer
+    rate above and resampled to fs.  Returns (planes, sent, sim)."""
+    from gr_bluetooth_tpu_torch.ops import resample
+    fs_syn = 1e6 * math.ceil(fs / 1e6)
+    sim = OneChannelSim(lap=0x24D952, uap=0x47, clk0=0x12780)
+    x, sent = testing.make_piconet_capture(
+        sim, n_slots=n_slots, fs=fs_syn, center_freq=CENTER, seed=seed,
+        tx_slots=range(0, n_slots - 6, 2), noise_std=0.01)
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    return resample.make_resampler(fs_syn, fs)(planes), sent, sim
+
+
+def offgrid_phase(fs: float = 7.68e6, n_slots: int = 96, device="cuda"):
+    """Phase 8c: Sniffer at an off-grid rate (resampled to the next even
+    integer Msps, the polyphase bank on the true band's channels): the
+    planted UAP decoded, and the hits equal to the same run on the CPU.
+    8-slot blocks: on this one-channel capture both packages' sniffers
+    lose the clock after slot 22 with 16-slot blocks (ROADMAP.md §3)."""
+    x, sent, sim = offgrid_capture(fs, n_slots)
+    runs = {}
+    for dev in (device, "cpu"):
+        sn = Sniffer(fs, CENTER, block_slots=8, bus=EventBus(), device=dev,
+                     enable_le=False)
+        on_card = sn.device.type == "cuda"
+        if on_card:
+            _zero_counts()
+        t0 = time.perf_counter()
+        blocks = list(sn.fe.stream(x))
+        counts = _counts() if on_card else None
+        sn.run_blocks(iter(blocks))
+        runs[dev] = (sn, blocks, time.perf_counter() - t0, counts)
+    sn, blocks, dt, counts = runs[device]
+    keys = [[(r.slot_base, h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+             for r in b for h in r.hits] for b in (blocks, runs["cpu"][1])]
+    assert keys[0] == keys[1], "off-grid hits differ between card and CPU"
+    pn = sn.basic_rate_piconets.get(sim.lap)
+    assert pn is not None and pn.have_uap and pn.uap == sim.uap, pn
+    assert sn.decoded and all((p.lap, p.uap) == (sim.lap, sim.uap)
+                              for p in sn.decoded)
+    if counts is not None:
+        _want_fused(counts, len(blocks))
+    print(f"off-grid {fs / 1e6:g} Msps -> {sn.fe.bank.fs / 1e6:g} Msps, "
+          f"channels {sn.fe.bank.channels}: UAP {pn.uap:#04x}, "
+          f"{len(sn.decoded)} packets decoded of {len(sent)} planted, "
+          f"{len(keys[0])} hits equal to the CPU's; launches {counts}; "
+          f"{dt:.4f} s host clock")
+
+
+def _relabelled(blocks, flip: int = 0x800000):
+    """The blocks with every classic hit's LAP XOR `flip`: the same
+    decode work (UAP discovery and decoding do not read the LAP) for
+    piconets other than the real ones."""
+    from dataclasses import replace
+    return [replace(r, hits=[replace(h, lap=h.lap ^ flip) for h in r.hits])
+            for r in blocks]
+
+
+def _by_lap(rows):
+    out = {}
+    for lap, *rest in rows:
+        out.setdefault(lap, []).append(tuple(rest))
+    return out
+
+
+def pool_phase(blocks_by_name, fe, n_workers: int = 4):
+    """Phase 8d: the multiprocess host decode (ParallelHostDecoder) over
+    fetched blocks against the single-process decode alone over the same
+    blocks (this process, its caches warm): the same packets per LAP, in
+    order; microseconds per hit of each.  Each capture runs on two fresh
+    pools (workers keep their piconet registries across drives), each
+    timed from when every worker has answered a first message (its
+    imports done): a cold one, whose workers meet the capture first, and
+    a warm one, driven first over the same blocks with every LAP
+    relabelled (_relabelled)."""
+    from gr_bluetooth_tpu_torch.models.parallel_host import \
+        ParallelHostDecoder
+    out = {}
+    for name, blocks in blocks_by_name.items():
+        n_hits = max(sum(len(r.hits) for r in blocks), 1)
+        one = Sniffer(fe.input_rate, fe.bank.center_freq,
+                      block_slots=fe.block_slots, bus=EventBus(),
+                      enable_le=False, device=fe.device)
+        t0 = time.perf_counter()
+        one.run_blocks(iter(blocks))
+        t_one = time.perf_counter() - t0
+        want = _by_lap((p.lap, p.uap, p.clkn, p.channel, p.packet_type,
+                        p.payload_length, None if p.payload is None
+                        else np.packbits(p.payload).tobytes())
+                       for p in one.decoded)
+        times = {}
+        for mode in ("cold", "warm"):
+            with ParallelHostDecoder(n_workers=n_workers) as pool:
+                for c in pool._conns:
+                    c.send(("stats",))
+                assert all(c.recv()[0] == "ok" for c in pool._conns)
+                if mode == "warm":
+                    pool.drive(fe, iter(_relabelled(blocks)))
+                t0 = time.perf_counter()
+                got = pool.drive(fe, iter(blocks))
+                times[mode] = time.perf_counter() - t0
+            assert _by_lap((d.lap, d.uap, d.clkn, d.channel, d.packet_type,
+                            d.payload_length, d.payload)
+                           for d in got) == want, \
+                f"{name}: the {mode} pool differs from the single decoder"
+        us = [t_one / n_hits * 1e6, times["cold"] / n_hits * 1e6,
+              times["warm"] / n_hits * 1e6]
+        print(f"host decode {name}: {len(got)} packets equal per LAP and in "
+              f"order; {n_hits} hits in {len(blocks)} blocks, single process "
+              f"{us[0]:.1f} us per hit, {n_workers} workers {us[1]:.1f} us "
+              f"per hit cold, {us[2]:.1f} us per hit warm")
+        out[name] = tuple(us)
+    return out
+
+
+@contextlib.contextmanager
+def timed(label: str):
+    """Print a phase's wall time when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[{label}: {time.perf_counter() - t0:.1f} s wall]")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1176,46 +1618,62 @@ def main() -> int:
     print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
 
-    t0 = time.perf_counter()
-    libs = cuda_build.build_all()
-    print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
-    for name, log in cuda_build.build_logs.items():
-        print(f"--- nvcc {name}\n{log.strip()}")
+    with timed("phase 2, build"):
+        t0 = time.perf_counter()
+        libs = cuda_build.build_all()
+        print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+        for name, log in cuda_build.build_logs.items():
+            print(f"--- nvcc {name}\n{log.strip()}")
 
-    survey = LapSurvey(FS, CENTER, block_slots=BLOCK_SLOTS)
-    fe = survey.fe
-    fe_le = frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
-                              max_ac_errors=1, enable_le=True)
-    x, _ = plant_capture(fe, 1, seed=9)
-    xb = fe.to_planes(x[: fe.block_samples])
-    rows, words = kernel_checks(fe, xb)
-    err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
-                                        fe.consts["ac_masks"])
-    profs = (("fused", step_profile("fused chain (LE off)", fe.fused_step,
-                                    xb, FUSED)),
-             ("flat", step_profile("flat chain (LE on)", fe_le.device_step,
-                                   xb, FLAT)))
-    ms = time_ms(lambda: fe_le.fused_step(xb), 20)
-    print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA events, "
-          f"20 steps)")
-    # detect_words runs on both chains; its row keeps the fused chain's
-    for chain, prof in profs:
-        for name, t in prof.items():
-            rows[name].setdefault("profiler_ms", t)
-            print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA "
-                  f"graph replay), {t:.4f} ms device time (profiler, in "
-                  f"the {chain} step)")
-    launches = main_path(survey, N_BLOCKS)
-    flat_launches = flat_path(fe_le, N_BLOCKS)
+    with timed("phase 3, kernels and steps"):
+        survey = LapSurvey(FS, CENTER, block_slots=BLOCK_SLOTS)
+        fe = survey.fe
+        fe_le = frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
+                                  max_ac_errors=1, enable_le=True)
+        x, _ = plant_capture(fe, 1, seed=9)
+        xb = fe.to_planes(x[: fe.block_samples])
+        rows, words = kernel_checks(fe, xb)
+        err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
+                                            fe.consts["ac_masks"])
+        profs = (("fused", step_profile("fused chain (LE off)",
+                                        fe.fused_step, xb, FUSED)),
+                 ("flat", step_profile("flat chain (LE on)",
+                                       fe_le.device_step, xb, FLAT)))
+        ms = time_ms(lambda: fe_le.fused_step(xb), 20)
+        print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA "
+              f"events, 20 steps)")
+        # detect_words runs on both chains; its row keeps the fused chain's
+        for chain, prof in profs:
+            for name, t in prof.items():
+                rows[name].setdefault("profiler_ms", t)
+                print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA "
+                      f"graph replay), {t:.4f} ms device time (profiler, "
+                      f"in the {chain} step)")
+    with timed("phase 4, main path"):
+        launches = main_path(survey, N_BLOCKS)
+    with timed("phase 5, flat path"):
+        flat_launches = flat_path(fe_le, N_BLOCKS)
     for k in FLAT[:2]:
         launches[k.__name__] = flat_launches[k.__name__]
-    small_reference()
+    with timed("phase 6, small reference"):
+        small_reference()
 
-    caps, sims = mode_captures(FS, CENTER), piconet_sims()
-    e2e_phase(*caps["e2e"], sims[0])
-    le_phase()
-    for name in ("max_rate", "mixed"):
-        sniffer_phase(name, *caps[name], sims)
+    with timed("phase 7, modes"):
+        caps, sims = mode_captures(FS, CENTER), piconet_sims()
+        e2e_phase(*caps["e2e"], sims[0])
+        le_phase()
+        fetched = {name: sniffer_phase(name, *caps[name], sims)
+                   for name in ("max_rate", "mixed")}
+
+    with timed("phase 8a, btrx on stdin"):
+        cli_phase(*caps["max_rate"], sims)
+    with timed("phase 8b, odd rate"):
+        odd_rate_phase()
+    with timed("phase 8c, off-grid rate"):
+        offgrid_phase()
+    with timed("phase 8d, multiprocess host decode"):
+        pool_phase({name: blocks for name, (_, blocks) in fetched.items()},
+                   fetched["max_rate"][0])
 
     launches[DETECT_ERR] = err_launches
     out = []

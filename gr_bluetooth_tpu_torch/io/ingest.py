@@ -16,14 +16,26 @@ The port of gr_bluetooth_tpu/io/ingest.py.  The contract has three parts:
     DEPTH blocks are in flight past the one being assembled, and the host
     waits on a block's event only when it assembles that block.  Nothing
     on the step reads a value back to the host.
+
+Clock correctness under overruns: a live radio cannot backpressure the
+air, so when the drop-oldest ring (io/sources.LiveSource) sheds samples
+the clock must advance with air time, not with bytes consumed — CLK1-6
+interval discovery and CLK1-27 winnowing consume slot differences
+(lib/piconet_impl.cc:445-453).  `live_chunks` converts dropped samples to
+whole slots (nearest, with the sub-slot residual carried forward) and
+emits _Slip markers; `PipelinedIngest.run` advances slot_base and resets
+the stale device carry at each one, and sends nothing to the device for
+it.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ["PipelinedIngest", "WIRES", "WIRE_ZERO_BYTE", "wire_chunks",
-           "wire_decode", "wire_decode_np", "wire_encode"]
+__all__ = ["PipelinedIngest", "WIRES", "WIRE_ZERO_BYTE", "live_chunks",
+           "wire_chunks", "wire_decode", "wire_decode_np", "wire_encode"]
 
 # wire formats: dtype on the link, scale applied on device.  "i4" packs
 # one complex sample per BYTE (I nibble low, Q nibble high, two's-
@@ -36,7 +48,8 @@ WIRES = {
     "i4": (np.uint8, 1.0 / 8.0),
     "u8": (np.uint8, 1.0 / 127.5),
 }
-# the byte that encodes a zero sample (tail padding)
+# the byte that decodes to (approximately) zero signal — tail padding
+# must use it: a 0x00 pad is full-scale -1-1j in the u8 offset format
 WIRE_ZERO_BYTE = {"f32": 0, "i16": 0, "i8": 0, "u8": 127, "i4": 0}
 
 DEPTH = 4   # blocks in flight past the one being assembled
@@ -93,6 +106,13 @@ def wire_decode(new: torch.Tensor, wire: str) -> torch.Tensor:
     return (x * scale if scale != 1.0 else x).contiguous()
 
 
+@dataclass
+class _Slip:
+    """A clock discontinuity: the source dropped `slots` slots of air."""
+    slots: int
+    samples: int
+
+
 class PipelinedIngest:
     """Streaming loop over a FrontEnd: wire chunks in, BlockResults out.
 
@@ -121,12 +141,14 @@ class PipelinedIngest:
         return h.to(self.fe.device, non_blocking=True)
 
     def step(self, carry, new):
-        """(device carry, device wire chunk) -> (next carry, outputs of
-        the fused chain, FrontEnd.fused_step), as the JAX package's
-        _pipelined_step stages the block for its fused kernels."""
+        """(device carry, device wire chunk) -> (next carry, the step's
+        outputs), as the JAX package's _pipelined_step: the fused chain
+        (FrontEnd.fused_step) for a polyphase bank, the conv-bank step
+        (FrontEnd.device_step) for the odd rates' ChannelBank."""
         xb = torch.cat([carry, wire_decode(new, self.wire)], 1)
-        outs = self.fe.fused_step(xb)
-        return xb[:, -self.fe.overlap_samples:], outs
+        fe = self.fe
+        outs = fe.fused_step(xb) if fe.is_pfb else fe.device_step(xb)
+        return xb[:, -fe.overlap_samples:], outs
 
     def _pack(self, outs):
         """Outputs -> one int32 device vector (float32 bit-cast), plus the
@@ -143,8 +165,14 @@ class PipelinedIngest:
             parts.append(oi.reshape(-1))
         return torch.cat(parts), specs
 
-    def run(self, chunks, start_clkn: int = 0, initial_carry=None):
-        """Iterate BlockResults over a chunk stream."""
+    def run(self, chunks, start_clkn: int = 0, initial_carry=None,
+            bus=None):
+        """Iterate BlockResults over a chunk stream.
+
+        `chunks` yields wire arrays, or _Slip markers (from live_chunks)
+        signalling dropped air time: the clock advances by the slipped
+        slots, the device carry restarts from zeros, and `bus` (if
+        given) gets a clock_slipped event."""
         from ..utils.metrics import metrics
 
         fe = self.fe
@@ -153,6 +181,16 @@ class PipelinedIngest:
         slot_base = start_clkn
         pending: list = []              # [(host buf, event, specs, clkn)]
         for item in chunks:
+            if isinstance(item, _Slip):
+                # gap in the stream: air time advanced without samples;
+                # packets straddling the gap are unrecoverable anyway
+                slot_base += item.slots
+                carry = self._h2d(self._zeros)
+                metrics.count("clock_slipped_slots", item.slots)
+                if bus is not None:
+                    bus.emit("clock_slipped", slots=item.slots,
+                             samples=item.samples, clkn=slot_base)
+                continue
             with metrics.stage("h2d"):
                 d = self._h2d(item)
             if len(pending) > DEPTH:
@@ -234,3 +272,32 @@ def wire_chunks(samples, fe, wire: str = "f32", pad_tail: bool = False):
             yield inter[ov + i * st: ov + (i + 1) * st]
 
     return carry, chunks()
+
+
+def live_chunks(source, samples_per_slot: int):
+    """Wrap a raw live source (LiveSource.iter_raw) into the chunk+slip
+    stream PipelinedIngest.run consumes.
+
+    Dropped samples are converted to whole slots (nearest; the sub-slot
+    residual is carried so long-run clock drift is bounded by half a
+    slot), keeping clkn locked to air time across overruns."""
+    residual = 0
+
+    def slip():
+        nonlocal residual
+        d = source.take_dropped_samples()
+        if not d:
+            return None
+        residual += d
+        slots = int(round(residual / samples_per_slot))
+        residual -= slots * samples_per_slot
+        return _Slip(slots=slots, samples=d) if slots else None
+
+    for chunk in source.iter_raw():
+        s = slip()
+        if s is not None:
+            yield s
+        yield chunk
+    s = slip()
+    if s is not None:
+        yield s

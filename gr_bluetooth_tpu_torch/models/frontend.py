@@ -1,15 +1,16 @@
 """Streaming wideband front end: blocks of IQ -> compact hit tables.
 
-The port of gr_bluetooth_tpu/models/frontend.py for even-integer-Msps
-captures.  Long IQ blocks flow through the device pipeline once, with a
-5-slot lookahead overlap so packets that start near the end of a block
-are fully decodable; the dense per-offset detection planes are reduced on
-the device to a fixed-size hit table (channel, offset, LAP, errors) plus
-per-hit symbol windows, so a block's host traffic is a few hundred KB.
+The port of gr_bluetooth_tpu/models/frontend.py, at every rate of 2 Msps
+or more that the reference accepts.  Long IQ blocks flow through the
+device pipeline once, with a 5-slot lookahead overlap so packets that
+start near the end of a block are fully decodable; the dense per-offset
+detection planes are reduced on the device to a fixed-size hit table
+(channel, offset, LAP, errors) plus per-hit symbol windows, so a block's
+host traffic is a few hundred KB.
 
-Two chains compute one block's step, as in the JAX package's
-_device_step, which takes the first for flat (2, N) planes and the
-second for the staged layout that stream() builds:
+At even-integer rates two chains compute one block's step, as in the
+JAX package's _device_step, which takes the first for flat (2, N) planes
+and the second for the staged layout that stream() builds:
 
   flat (_device_step: device_step, process_block, stream_sync)
     deinterleave   (2, N) -> (2, D, n_x) branch rows [CUDA, ops/pfb]
@@ -23,7 +24,24 @@ second for the staged layout that stream() builds:
                    energies                          [CUDA, ops/demod_kernel]
     slot SNR       segment sums of the partials      [torch, ops/snr]
 
-and both end in the same packed tail (_packed_tail):
+Odd-integer rates have no polyphase bank and no fused chain: their one
+step (_conv_step: device_step, process_block, stream_sync and stream)
+is the strided conv bank, as the JAX package's _device_step with is_pfb
+false:
+
+  conv           strided conv bank + exact rotator [torch conv1d (cuDNN),
+                 FP32, ops/channelizer]
+  slot SNR       one FFT per slot, two FP32 matmuls against |H|^2
+                 columns                           [torch, ops/snr]
+  demod          discriminator, 16-phase timing at ch_sps = sps/decim,
+                 slicer -> dense bits -> packed words [torch, ops/demod]
+
+Off-grid rates (2.5, 7.68 Msps, ...) are resampled on the host to the
+nearest even integer Msps (ops/resample.py) and then run the polyphase
+bank at that internal rate, restricted to the true band's channels;
+stream() takes the fused chain, stream_sync() the flat one.
+
+All steps end in the same packed tail (_packed_tail):
 
     detect_words   packed access-code detection      [CUDA, ops/detect_kernel]
     squelch AND on word planes, first-k hit extraction, bit-aligned window
@@ -33,9 +51,6 @@ and both end in the same packed tail (_packed_tail):
 
 Nothing on the step reads a value back to the host.  Hits within the
 first B slots are reported; the stream advances B slots.
-
-Odd-integer rates and off-grid rates are not ported yet (ROADMAP.md) and
-raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,8 +62,8 @@ import torch
 from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT,
                          SYMBOLS_LE_PREAMBLE_AA, SYMBOLS_PER_SLOT)
 from ..core.le_tables import freq2index
-from ..ops import (demod, demod_kernel, detect, detect_kernel, pfb,
-                   pfb_kernel, snr)
+from ..ops import (channelizer, demod, demod_kernel, detect, detect_kernel,
+                   pfb, pfb_kernel, resample, snr)
 from ..ops.detect_kernel import ac_errors, popcount, u32_to_i32
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
@@ -107,21 +122,30 @@ class FrontEnd:
                  use_squelch: bool = True, enable_le: bool = False,
                  max_hits: int | None = None,
                  max_le_hits: int | None = None, device=None):
-        spsf = sample_rate / 1e6
-        if not (abs(spsf - round(spsf)) < 1e-9 and round(spsf) >= 2):
-            raise NotImplementedError(
-                f"{sample_rate / 1e6:g} Msps is off the 1 Msps grid: the "
-                "resampled front end is not ported yet (ROADMAP.md, queue 1: "
-                "odd-rate and resampled front ends)")
-        if round(spsf) % 2:
-            raise NotImplementedError(
-                f"{sample_rate / 1e6:g} Msps is an odd rate: the strided "
-                "conv bank is not ported yet (ROADMAP.md, queue 1: odd-rate "
-                "and resampled front ends)")
         self.device = resolve_device(device)
+        # polyphase DFT bank for even samples/symbol, the strided conv
+        # bank for odd integer rates; off-grid rates (the reference
+        # accepts any rate >= 2 Msps, lib/multi_block.cc:82) resample to
+        # the nearest even integer Msps first and run the polyphase bank
+        # restricted to the TRUE band's channels
         self.input_rate = sample_rate
-        self.bank = b = pfb.make_pfb_bank(sample_rate, center_freq)
-        sc = snr.make_stream_snr_consts(b)
+        self.resampler = None
+        self.weights = None
+        spsf = sample_rate / 1e6
+        if abs(spsf - round(spsf)) < 1e-9 and round(spsf) >= 2:
+            if round(spsf) % 2 == 0:
+                b = pfb.make_pfb_bank(sample_rate, center_freq)
+            else:
+                b = channelizer.make_bank(sample_rate, center_freq)
+        else:
+            fs_int = resample.pick_internal_rate(sample_rate)
+            self.resampler = resample.make_resampler(sample_rate, fs_int)
+            b = pfb.make_pfb_bank(
+                fs_int, center_freq,
+                channels=channelizer.select_channels(sample_rate,
+                                                     center_freq))
+        self.bank = b
+        self.is_pfb = isinstance(b, pfb.PfbBank)
         self.block_slots = block_slots
         self.samples_per_slot = SYMBOLS_PER_SLOT * b.sps
         # wideband samples consumed per block step
@@ -152,20 +176,30 @@ class FrontEnd:
             64, 4 * block_slots, min(int(4 * fp_budget) + 64, 512))
         self.enable_le = bool(enable_le and self.le_rows)
 
-        Q = b.h0.shape[0]
-        n_y = self.block_samples // b.decim - 2 * Q   # true output frames
         n_off = self.n_sym - 72 + 1
         self.statics = dict(
-            decim=b.decim, n_sym=self.n_sym, n_y=n_y, slot_ch=sc.slot_ch,
-            kappa=sc.kappa, demod_gain=b.demod_gain,
+            decim=b.decim, n_sym=self.n_sym, demod_gain=b.demod_gain,
             max_ac_errors=max_ac_errors, delay_sym=self.delay_sym,
             squelch=(float(squelch_threshold) if use_squelch else None),
             max_hits=self.max_hits, max_le_hits=self.max_le_hits)
         s0, ma = _word_slot_consts(-(-n_off // 32), self.delay_sym)
-        consts = dict(
-            h0=b.h0, h1=b.h1, dft_c=b.dft_c, dft_s=b.dft_s,
-            bin_odd=b.bin_odd, probe_re=sc.taps_re, probe_im=sc.taps_im,
-            ac_masks=detect_kernel.ac_masks(), word_s0=s0, word_mask_a=ma)
+        consts = dict(ac_masks=detect_kernel.ac_masks(), word_s0=s0,
+                      word_mask_a=ma)
+        if self.is_pfb:
+            sc = snr.make_stream_snr_consts(b)
+            Q = b.h0.shape[0]
+            self.statics.update(
+                n_y=self.block_samples // b.decim - 2 * Q,  # true frames
+                slot_ch=sc.slot_ch, kappa=sc.kappa)
+            consts.update(h0=b.h0, h1=b.h1, dft_c=b.dft_c, dft_s=b.dft_s,
+                          bin_odd=b.bin_odd, probe_re=sc.taps_re,
+                          probe_im=sc.taps_im)
+        else:
+            self.weights = w = snr.make_snr_weights(b)
+            self.statics.update(sps=b.sps, ch_sps=b.ch_sps,
+                                slot_len=w.slot_len)
+            consts.update(kernel=b.kernel, rot_q=b.rot_q, on_w=w.on_w,
+                          off_w=w.off_w)
         if self.enable_le:
             white, aa_on, max_dist = detect.le_row_consts(
                 [r[2] for r in self.le_rows])
@@ -191,15 +225,20 @@ class FrontEnd:
             self.device)
 
     def device_step(self, x):
-        """The flat chain on one block of wideband IQ (complex (N,) or
-        (2, N) float32 planes, host or device).  Returns device tensors
-        (snr_db, n_hits, hit_tab, windows, n_le, le_tab, le_windows), the
-        JAX package's 7-tuple; the LE three are None with LE off."""
-        return _device_step(self.to_planes(x), **self.consts, **self.statics)
+        """The flat chain (the conv-bank step at odd rates) on one block
+        of wideband IQ at the bank's rate (complex (N,) or (2, N) float32
+        planes, host or device).  Returns device tensors (snr_db, n_hits,
+        hit_tab, windows, n_le, le_tab, le_windows), the JAX package's
+        7-tuple; the LE three are None with LE off."""
+        step = _device_step if self.is_pfb else _conv_step
+        return step(self.to_planes(x), **self.consts, **self.statics)
 
     def fused_step(self, x):
         """The fused chain on one block, same input and outputs as
-        device_step (stream() runs it)."""
+        device_step (stream() runs it); polyphase banks only."""
+        if not self.is_pfb:
+            raise ValueError("the conv bank of odd rates has no fused "
+                             "chain; device_step is its step")
         return _fused_step(self.to_planes(x), **self.consts, **self.statics)
 
     # ------------------------------------------------------------ host
@@ -326,17 +365,29 @@ class FrontEnd:
         n = min(LE_WIN_SYMBOLS, self.n_sym - hit.sym_offset)
         return self._unpack_window(res.le_windows[hit.win_row], n)
 
+    def _host_planes(self, samples) -> np.ndarray:
+        """Host capture -> (2, N) float32 planes at the bank's rate
+        (resampled first at off-grid rates)."""
+        samples = np.asarray(samples)
+        if np.iscomplexobj(samples):
+            samples = np.stack([samples.real, samples.imag]).astype(np.float32)
+        if self.resampler is not None:
+            samples = self.resampler(samples)
+        return samples
+
     def stream(self, samples, start_clkn: int = 0, wire: str = "f32"):
         """Iterate BlockResults over a long capture (host numpy input).
 
         The production pipelined path (io.ingest) through the fused
-        chain: the overlap-save carry lives on the device, each block's
-        H2D copy carries only step_samples of new data in the given wire
-        format, and later blocks are launched before earlier blocks'
-        outputs are read.  Block placement equals stream_sync's."""
+        chain (the conv-bank step at odd rates): the overlap-save carry
+        lives on the device, each block's H2D copy carries only
+        step_samples of new data in the given wire format, and later
+        blocks are launched before earlier blocks' outputs are read.
+        Block placement equals stream_sync's."""
         from ..io.ingest import PipelinedIngest, wire_chunks
         from ..utils.metrics import metrics
 
+        samples = self._host_planes(samples)
         ingest = self._ingests.get(wire)
         if ingest is None:
             ingest = self._ingests[wire] = PipelinedIngest(self, wire)
@@ -348,9 +399,7 @@ class FrontEnd:
         """Synchronous block loop through the flat chain (one blocking
         copy + step + fetch per block) — the parity reference for
         stream()."""
-        samples = np.asarray(samples)
-        if np.iscomplexobj(samples):
-            samples = np.stack([samples.real, samples.imag]).astype(np.float32)
+        samples = self._host_planes(samples)
         pos = 0
         slot_base = start_clkn
         n = samples.shape[1]
@@ -526,6 +575,21 @@ def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
     snr_db, _, _ = snr.stream_snr(yr, yi, probe_re, probe_im,
                                   slot_ch=slot_ch, kappa=kappa)
     _, bits = demod.demod_and_slice(yr[:-1], yi[:-1], demod_gain, 2.0, n_sym)
+    words = detect_kernel.pack_bits_words(bits)
+    return _packed_tail(words, bits, snr_db, n_sym=n_sym, **tail)
+
+
+def _conv_step(x_ri, *, kernel, rot_q, on_w, off_w, decim, sps, ch_sps,
+               demod_gain, n_sym, slot_len, **tail):
+    """The odd-integer rates' step: (2, N) float32 block on the device ->
+    the step's 7-tuple, as gr_bluetooth_tpu's _device_step with is_pfb
+    false and use_pallas (frontend.py:723-726, 747-751): the conv bank
+    and the slot SNR, the torch demod at ch_sps samples per symbol, its
+    bits packed for detect_words."""
+    yr, yi = channelizer._channelize_impl(x_ri[None], kernel, rot_q, 0,
+                                          decim=decim, sps=sps)
+    snr_db, _, _ = snr._slot_snr_impl(x_ri, on_w, off_w, slot_len)
+    _, bits = demod.demod_and_slice(yr, yi, demod_gain, ch_sps, n_sym)
     words = detect_kernel.pack_bits_words(bits)
     return _packed_tail(words, bits, snr_db, n_sym=n_sym, **tail)
 

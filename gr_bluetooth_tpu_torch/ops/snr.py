@@ -20,6 +20,15 @@ make_stream_snr_consts.  Two ways to the same (S, C) slot SNR:
     package computes it outside any Pallas kernel).  Its probe
     contraction is an FP32 matmul: TF32 is off for it alone
     (utils/device.fp32_matmul), whatever the caller has set.
+
+The odd-integer rates' conv bank (ops/channelizer.py) has no probe row,
+so its squelch reads the wideband block itself, as
+gr_bluetooth_tpu/ops/snr.py:_slot_snr_impl does: by Parseval, mean
+|x*h|^2 = (1/L^2) sum_f |X_f|^2 |H_f|^2, so one L-point FFT per slot
+gives every channel's on- and off-band energy as two FP32 matmuls,
+P @ on_w and P @ off_w, against precomputed |H|^2 columns
+(`make_snr_weights`, a copy of the JAX package's NumPy code).  The FFT
+is torch.fft.fft (XLA's FFT in the JAX package).
 """
 from __future__ import annotations
 
@@ -28,17 +37,87 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import (CHANNEL_FILTER_CUTOFF, CHANNEL_FILTER_TRANSITION,
-                         CHANNEL_WIDTH, NOISE_FILTER_CUTOFF,
-                         NOISE_FILTER_TRANSITION, NOISE_PROBE_OFFSET,
-                         SYMBOLS_PER_SLOT)
-from ..utils.device import fp32_matmul
+from ..constants import (BASE_FREQUENCY, CHANNEL_FILTER_CUTOFF,
+                         CHANNEL_FILTER_TRANSITION, CHANNEL_WIDTH,
+                         NOISE_FILTER_CUTOFF, NOISE_FILTER_TRANSITION,
+                         NOISE_PROBE_OFFSET, SYMBOLS_PER_SLOT)
+from ..utils.device import fp32_matmul, resolve_device
+from .channelizer import ChannelBank
 from .filters import lowpass_taps
 
-__all__ = ["PROBE_STRIDE", "StreamSnrConsts", "make_stream_snr_consts",
-           "probe_points", "assemble_slot_snr", "stream_snr"]
+__all__ = ["PROBE_STRIDE", "SnrWeights", "StreamSnrConsts",
+           "assemble_slot_snr", "make_snr_weights", "make_stream_snr_consts",
+           "probe_points", "slot_snr", "stream_snr"]
 
 PROBE_STRIDE = 40                       # probe energy samples per slot: ~31
+
+
+@dataclass(frozen=True)
+class SnrWeights:
+    slot_len: int                 # wideband samples per slot
+    on_w: np.ndarray              # (L, C) float32
+    off_w: np.ndarray             # (L, C) float32
+
+
+def _shifted_response(taps: np.ndarray, L: int, f_rel: float,
+                      fs: float) -> np.ndarray:
+    """|H(f - f_rel)|^2 sampled at the L FFT bins of rate fs:
+    H(f_k - f_rel) = FFT{ h[t] e^{+j 2 pi f_rel t / fs} }[k], exact for
+    any (fractional-bin) shift at O(L log L)."""
+    t = np.arange(len(taps))
+    mod = taps * np.exp(2j * np.pi * (f_rel / fs) * t)
+    return np.abs(np.fft.fft(mod, L)) ** 2
+
+
+def make_snr_weights(bank: ChannelBank) -> SnrWeights:
+    L = SYMBOLS_PER_SLOT * bank.sps
+    ch_taps = lowpass_taps(1.0, bank.fs, CHANNEL_FILTER_CUTOFF,
+                           CHANNEL_FILTER_TRANSITION)
+    nz_taps = lowpass_taps(1.0, bank.fs, NOISE_FILTER_CUTOFF,
+                           NOISE_FILTER_TRANSITION)
+    C = bank.n_channels
+    on_w = np.zeros((L, C), dtype=np.float32)
+    off_w = np.zeros((L, C), dtype=np.float32)
+    for i, ch in enumerate(bank.channels):
+        f_rel = BASE_FREQUENCY + ch * CHANNEL_WIDTH - bank.center_freq
+        on_w[:, i] = _shifted_response(ch_taps, L, f_rel, bank.fs)
+        off_w[:, i] = _shifted_response(nz_taps, L, f_rel + NOISE_PROBE_OFFSET,
+                                        bank.fs)
+    return SnrWeights(L, on_w, off_w)
+
+
+def _slot_snr_impl(x_ri, on_w, off_w, slot_len: int):
+    """x_ri (2, N) float32 IQ planes, on_w/off_w (L, C) -> (snr_db, on,
+    off), each (S, C), S = N // slot_len."""
+    n_slots = x_ri.shape[1] // slot_len
+    xs = x_ri[:, : n_slots * slot_len].reshape(2, n_slots, slot_len)
+    X = torch.fft.fft(torch.complex(xs[0], xs[1]))
+    P = X.real ** 2 + X.imag ** 2
+    scale = 1.0 / (slot_len * slot_len)
+    with fp32_matmul():
+        on = (P @ on_w) * scale
+        off = (P @ off_w) * scale
+    snr_db = 10.0 * (torch.log10(torch.clamp(on, min=1e-30)) -
+                     torch.log10(torch.clamp(off, min=1e-30)))
+    return snr_db, on, off
+
+
+def slot_snr(x, weights: SnrWeights, device=None):
+    """x: complex wideband block or (2, N) float32 planes (numpy or
+    torch); returns (snr_db, on, off), each (S, C), on `device` (the
+    card unless the caller names another)."""
+    device = resolve_device(device)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if np.iscomplexobj(x):
+            x = np.stack([x.real, x.imag])
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    elif x.is_complex():
+        x = torch.stack([x.real, x.imag])
+    x = x.to(device, torch.float32)
+    return _slot_snr_impl(x, torch.from_numpy(weights.on_w).to(device),
+                          torch.from_numpy(weights.off_w).to(device),
+                          weights.slot_len)
 
 
 @dataclass(frozen=True)

@@ -26,12 +26,15 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def fp32_matmul():
-    """Matmuls enqueued inside the block run in FP32, not TF32; the
-    process-wide flag is restored on exit, so a caller's own setting
-    holds outside."""
-    flag = torch.backends.cuda.matmul.allow_tf32
+    """Matmuls and cuDNN convolutions enqueued inside the block run in
+    FP32, not TF32; both process-wide flags are restored on exit, so a
+    caller's own setting holds outside."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

@@ -4,13 +4,18 @@
     JAX package's (make_pfb_bank, make_stream_snr_consts, affine_code,
     _word_slot_consts), and convert.consts_from_jax reproduces them;
   * wire_decode is bit-identical to wire_decode_np for every format;
-  * no file of the port, and not chip_smoke.py, imports jax or
-    gr_bluetooth_tpu;
-  * entry points with no device on a machine without a card raise, the
-    paths not ported yet (odd and off-grid rates) raise
-    NotImplementedError, and the kernel wrappers refuse bad input.
+  * no file of the port (its CLI in apps/ and the I/O, resampler,
+    conv-bank, parallel-decode and blocks modules among them), and not
+    chip_smoke.py, imports jax or gr_bluetooth_tpu;
+  * entry points with no device on a machine without a card raise, odd
+    and off-grid rates build their own front ends (an odd rate's has no
+    fused chain, and its fused_step raises), and the kernel wrappers
+    refuse bad input;
+  * the port builds its own copy of native/btio.cc with g++ into its
+    _build directory and writes nothing under native/.
 """
 import ast
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +30,7 @@ from gr_bluetooth_tpu.ops import snr as jsnr
 from gr_bluetooth_tpu.ops import synth as jsynth
 from gr_bluetooth_tpu_torch import convert
 from gr_bluetooth_tpu_torch.core import access_code
-from gr_bluetooth_tpu_torch.io import ingest
+from gr_bluetooth_tpu_torch.io import ingest, native
 from gr_bluetooth_tpu_torch.models import frontend, lap_survey
 from gr_bluetooth_tpu_torch.ops import pfb, pfb_kernel, snr, synth
 
@@ -132,11 +137,51 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "gr_bluetooth_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20 and files[-1].exists()
+    scanned = {str(f.relative_to(ROOT / "gr_bluetooth_tpu_torch"))
+               for f in files[:-1]}
+    assert {"apps/__init__.py", "apps/btrx.py", "blocks.py", "io/native.py",
+            "io/sources.py", "io/writers.py", "io/ingest.py",
+            "models/parallel_host.py", "ops/resample.py",
+            "ops/channelizer.py", "ops/snr.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gr_bluetooth_tpu"), \
                 (str(f.relative_to(ROOT)), mod)
+
+
+def test_native_build_is_the_ports_own(tmp_path, monkeypatch):
+    """The port builds its own copy of btio.cc with g++ (not make) into
+    its _build directory, named by a digest of the source, and writes
+    nothing under native/."""
+    before = {p.name: p.stat().st_size for p in (ROOT / "native").iterdir()}
+    calls = []
+    run = subprocess.run
+
+    def spy(cmd, *a, **kw):
+        calls.append(cmd)
+        return run(cmd, *a, **kw)
+
+    monkeypatch.setattr(native, "BUILD", tmp_path / "_build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native.subprocess, "run", spy)
+    lib = native.load()
+    assert lib is not None
+    so = native.library_path()
+    assert so.parent == tmp_path / "_build" and so.exists()
+    assert so.name.startswith("libbtio-") and lib._name == str(so)
+    assert native.SOURCE == ROOT / "gr_bluetooth_tpu_torch" / "native" / \
+        "btio.cc"
+    (cmd,) = calls
+    assert cmd[0] == "g++" and cmd[-1] == str(native.SOURCE)
+    assert not any(str(ROOT / "native") in str(c) for c in cmd)
+    after = {p.name: p.stat().st_size for p in (ROOT / "native").iterdir()}
+    assert after == before
+    # a second load reuses the library without building
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    assert native.load() is not None and len(calls) == 1
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -150,8 +195,25 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(sample_rate=5e6),
                                 dict(sample_rate=7.68e6)])
 def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frontend.FrontEnd(center_freq=2441e6, device="cpu", **kw)
+    """The odd and off-grid rates, once unported, build their front ends:
+    5 Msps the strided conv bank, whose one step is device_step (its
+    fused_step raises), 7.68 Msps the resampler to 8 Msps and the
+    polyphase bank on the true band's channels.  The banks themselves
+    still refuse the rates they cannot take."""
+    fe = frontend.FrontEnd(center_freq=2441e6, device="cpu", **kw)
+    if kw["sample_rate"] == 5e6:
+        assert not fe.is_pfb and fe.resampler is None
+        assert fe.bank.decim == 2 and fe.bank.ch_sps == 2.5
+        with pytest.raises(ValueError, match="no fused chain"):
+            fe.fused_step(np.zeros((2, fe.block_samples), np.float32))
+        with pytest.raises(ValueError, match="even"):
+            pfb.make_pfb_bank(5e6, 2441e6)
+    else:
+        assert fe.is_pfb and fe.resampler is not None
+        assert fe.bank.fs == 8e6 and fe.input_rate == 7.68e6
+        assert fe.bank.channels == tuple(range(36, 43))
+        with pytest.raises(ValueError, match="integer multiple"):
+            pfb.make_pfb_bank(7.68e6, 2441e6)
 
 
 def test_wrappers_take_cpu_or_cuda_only():

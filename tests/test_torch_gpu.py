@@ -21,6 +21,7 @@ import torch
 
 import chip_smoke
 from gr_bluetooth_tpu_torch.io import ingest
+from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
 from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel, pfb,
                                         pfb_kernel, snr)
@@ -557,3 +558,135 @@ def test_device_winnower_on_card_matches_cpu(cuda, aliased, afh):
     got = ws[0].candidates()
     assert np.array_equal(got, ws[1].candidates())
     assert clk0 in got.tolist()
+
+
+# ------------------------------------------- odd and off-grid rates, the CLI
+
+def test_conv_bank_step_at_81_msps_matches_cpu(cuda):
+    """The 81 Msps conv-bank step on the card (cuDNN conv1d, cuFFT slot
+    SNR, torch demod, the detect_words kernel) against the plain step on
+    the CPU, with cuDNN and matmul TF32 ON for the process: the channel
+    streams within 2e-5 (the guard keeps the conv in FP32), the
+    detector planes of the card's words exact against the plain
+    detector, the hit table equal and SNR within 1e-3 dB."""
+    from gr_bluetooth_tpu_torch.ops import channelizer
+    fg = FrontEnd(81e6, 2441e6, block_slots=16)
+    fc = FrontEnd(81e6, 2441e6, block_slots=16, device="cpu")
+    assert not fg.is_pfb and fg.bank.n_channels == 79
+    x, _ = chip_smoke.plant_capture(fc, 1, seed=8)
+    c, s = fg.consts, fg.statics
+    xb = fg.to_planes(x[: fg.block_samples])
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yr, yi = channelizer._channelize_impl(
+            xb[None], c["kernel"], c["rot_q"], 0, decim=s["decim"],
+            sps=s["sps"])
+        assert torch.backends.cudnn.allow_tf32      # restored after
+        counts = _launches()
+        og = fg.device_step(xb)
+        assert _launches() == {k: n + (k == "detect_words")
+                               for k, n in counts.items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    pr, pi = channelizer._channelize_impl(
+        xb[None].cpu(), fc.consts["kernel"], fc.consts["rot_q"], 0,
+        decim=s["decim"], sps=s["sps"])
+    err = max((yr.cpu() - pr).abs().max().item(),
+              (yi.cpu() - pi).abs().max().item())
+    assert err <= 2e-5, err
+    oc = fc.device_step(x[: fc.block_samples])
+    torch.testing.assert_close(og[0].cpu(), oc[0], atol=1e-3, rtol=0)
+    assert int(og[1]) == int(oc[1]) >= 10
+    assert torch.equal(og[2].cpu(), oc[2])
+    # the detector on the card's own words: kernel against plain, exact
+    from gr_bluetooth_tpu_torch.ops import demod
+    _, bits = demod.demod_and_slice(yr, yi, s["demod_gain"], s["ch_sps"],
+                                    s["n_sym"])
+    words = detect_kernel.pack_bits_words(bits)
+    n = s["n_sym"] - 72 + 1
+    hit, gate, _ = detect_kernel.detect_words(words, n, 6, c["ac_masks"])
+    phit, pgate, _ = detect_kernel.detect_words_plain(
+        words.cpu(), n, 6, c["ac_masks"].cpu())
+    assert torch.equal(hit.cpu(), phit) and torch.equal(gate.cpu(), pgate)
+
+
+@pytest.mark.parametrize("fs", [7.68e6, 2.5e6])
+def test_fused_kernels_on_the_restricted_channel_set(cuda, fs):
+    """Off-grid rates run the polyphase bank at the internal rate on the
+    true band's channels only (2.5 -> 4 Msps: channel 39 and its probe
+    row; 7.68 -> 8 Msps: 36..42): pfb_snr and demod_pack against their
+    plain versions on such a bank."""
+    fe = FrontEnd(fs, 2441e6, block_slots=8)
+    assert fe.resampler is not None and fe.is_pfb
+    c, s = fe.consts, fe.statics
+    assert c["dft_c"].shape[1] == fe.bank.n_channels + 1
+    r = np.random.default_rng(int(fs) // 1000)
+    xb = torch.from_numpy(r.normal(0, 0.5, (2, fe.block_samples)).astype(
+        np.float32)).to(cuda)
+    Q, D = c["h0"].shape
+    n, n_data, S, n_k, n_frames = frontend.step_geometry(
+        xb.shape[1], Q, D, s["n_sym"], s["slot_ch"], c["probe_re"].shape[0])
+    bank = (c["h0"], c["h1"], c["dft_c"], c["dft_s"], c["bin_odd"])
+    yr, yi, oe = pfb_kernel.pfb_snr(xb, *bank, n_frames)
+    pr, pi, poe = pfb_kernel.pfb_snr_plain(xb, *bank, n_frames)
+    assert (yr - pr).abs().max().item() <= 2e-5
+    assert (yi - pi).abs().max().item() <= 2e-5
+    torch.testing.assert_close(oe, poe, atol=1e-4, rtol=1e-4)
+    args = (yr, yi, s["demod_gain"], s["n_sym"], c["probe_re"],
+            c["probe_im"], n_k, n_data)
+    words, pe = demod_kernel.demod_pack(*args)
+    pwords, ppe = demod_kernel.demod_pack_plain(*args)
+    assert _popcount_diff(words, pwords) <= max(
+        1, words.shape[0] * s["n_sym"] * 1e-5)
+    torch.testing.assert_close(pe, ppe, atol=1e-6, rtol=1e-4)
+
+
+def test_odd_rate_stream_on_card_matches_cpu(cuda):
+    """5 Msps (the conv bank, 5 channels) through stream() on the card
+    against the CPU: the same hits, SNR within 1e-3 dB; detect_words
+    once per block and no other kernel."""
+    from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
+    gpu = LapSurvey(5e6, 2441e6, block_slots=8)
+    cpu = LapSurvey(5e6, 2441e6, block_slots=8, device="cpu")
+    x, planted = chip_smoke.plant_capture(gpu.fe, 2, seed=5)
+    counts = _launches()
+    og = gpu.run(x, emit_console=False)
+    assert _launches() == {k: n + 2 * (k == "detect_words")
+                           for k, n in counts.items()}
+    oc = cpu.run(x, emit_console=False)
+    key = lambda o: (o.clkn, o.channel, o.lap, o.errors)  # noqa: E731
+    assert [key(o) for o in og] == [key(o) for o in oc]
+    assert max(abs(a.snr_db - b.snr_db) for a, b in zip(og, oc)) <= 1e-3
+    chip_smoke.check_survey(og, planted)
+
+
+def test_cli_without_device_runs_on_the_card(cuda):
+    """btrx with no --device runs on the card: in this process its main
+    launches the fused chain's kernels, and as a subprocess it surveys
+    the planted LAP."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+    from gr_bluetooth_tpu_torch.apps import btrx
+    args = ["-r", "8e6", "-f", "2441e6", "--synthetic", "128"]
+    counts = _launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert btrx.main(args) == 0
+    after = _launches()
+    for k in ("pfb_snr", "demod_pack", "detect_words"):
+        assert after[k] > counts[k], (k, counts, after)
+    assert "LAP 24d952" in out.getvalue()
+    r = subprocess.run([sys.executable, "-m",
+                        "gr_bluetooth_tpu_torch.apps.btrx", *args],
+                       capture_output=True, timeout=300,
+                       cwd=chip_smoke.ROOT,
+                       env=dict(os.environ, PYTHONPATH=chip_smoke.ROOT))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    assert b"LAP 24d952" in r.stdout

@@ -152,3 +152,53 @@ def assert_windows_agree(a, b):
     d, n = window_mismatches(a, b)
     assert d <= n * 1e-5, (d, n)
     return d
+
+
+REPO = __import__("os").path.dirname(__import__("os").path.dirname(
+    __import__("os").path.abspath(__file__)))
+CLIS = {"jax": ("gr_bluetooth_tpu.apps.btrx", []),
+        "port": ("gr_bluetooth_tpu_torch.apps.btrx", ["--device", "cpu"])}
+
+
+def run_clis(make_args, stdin=None, timeout=300, names=("jax", "port")):
+    """Both packages' btrx as subprocesses side by side on the same input
+    (the port's with --device cpu), each on one CPU thread
+    (OMP_NUM_THREADS=1): make_args(name) gives each its arguments.
+    Returns {name: CompletedProcess}."""
+    import os
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
+
+    def one(name):
+        mod, extra = CLIS[name]
+        return subprocess.run(
+            [sys.executable, "-m", mod] + list(make_args(name)) + extra,
+            input=stdin, capture_output=True, timeout=timeout, env=env,
+            cwd=REPO)
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))
+
+
+def log_lines(stderr: bytes) -> list:
+    """The logger's lines ("<name> <level> <message>") of a btrx run,
+    without their timestamps."""
+    import re
+    pat = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} (grbt\.\S+ .*)$")
+    return [m.group(1) for m in map(pat.match,
+                                    stderr.decode().splitlines()) if m]
+
+
+def same_cli_output(runs, rc=0):
+    """Both runs exit with rc and print the same stdout and the same log
+    lines; returns the port's CompletedProcess."""
+    j, t = runs["jax"], runs["port"]
+    assert j.returncode == rc, j.stderr.decode()[-800:]
+    assert t.returncode == rc, t.stderr.decode()[-800:]
+    assert t.stdout.decode().splitlines() == j.stdout.decode().splitlines()
+    assert log_lines(t.stderr) == log_lines(j.stderr)
+    return t
