@@ -95,7 +95,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    d. ParallelHostDecoder(n_workers=4) over phase 7a's fetched blocks
       against the single-process decode of the same blocks: equal
       packets per LAP and in order, microseconds per hit of both.
-   Each phase prints its wall time.
+   Each phase prints its wall time;
+9. the Kismet survey and the sharded front ends (LE on, the survey's
+   max_ac_errors=1 where planted LAPs are checked):
+   a. KismetSource(80e6, 2441e6, block_slots=64) over phase 4's planted
+      capture: its frames equal, in order, the one-per-(channel, clkn)
+      reduction of the front end's hits, its tracked networks are the
+      planted LAPs framed twice or more, the fused kernels launch once
+      per block; a BtbbDevServer client receives the snapshot and then
+      one tick's updates, none lost; then `python -m
+      gr_bluetooth_tpu_torch.kismet -r 80e6 -f 2441e6 --synthetic 256
+      --table` (no --device) exits 0 with the row 00:00:00:24:d9:52;
+   b. ShardedFrontEnd over [cuda:0] * 4, two superblocks (8 blocks,
+      25.6 M samples) with ID and LE advertising packets, some starting
+      560 symbols into the last slot of a shard's chunk and of the first
+      superblock: classic and LE hit keys equal to FrontEnd.stream's,
+      slot SNR within 1e-3 dB, each fused-chain kernel launched 4 x 2
+      times; then measure_scaling_efficiency (efficiency, halo cost,
+      speedup against a one-device loop, peak device memory);
+   c. Sharded2DFrontEnd on a 2 x 2 grid of cuda:0 over 4 blocks: hits
+      equal to FrontEnd.stream's; pfb_snr, demod_pack and detect_words
+      at each group's width (41 DFT columns) against their plain
+      versions with phase 3's bounds;
+   d. two processes under a gloo process group (2 shards each on
+      cuda:0, device_put_local, the halo through host memory), each
+      with a time limit: process 0's hits equal 9b's.  NCCL refuses two
+      ranks on one card, so its path is not run here.
+   Each prints its wall time.
 
 Phase 3 also checks detect_words with emit_err (its 7 error-count planes
 exact against the plain version) and times it, and phase 3c runs the
@@ -117,6 +143,14 @@ bound_ms / ms); the last line is
 {"ok": true, "device": {...}}.
 With no CUDA device the script exits non-zero before printing any
 result.
+
+    python3 chip_smoke.py --cards 4      # on a machine with four cards
+
+builds the kernels and runs only phase 9 across the cards
+(multicard_phase): the three fused kernels on every card with card 0
+current, 9b with one shard per card, 9c on the grid [[0, 1], [2, 3]],
+9d under NCCL with a process per card, then dryrun_multichip(N); its
+last line is the same {"ok": true, ...} with the cards' count.
 """
 from __future__ import annotations
 
@@ -126,6 +160,7 @@ import logging
 import math
 import os
 import re
+import socket
 import struct
 import subprocess
 import sys
@@ -256,20 +291,48 @@ def le_adv_frame(index: int, pdu_type: int, payload: bytes) -> np.ndarray:
     return np.concatenate([preamble, aa_bits, pdu]).astype(np.uint8)
 
 
-def plant_le_capture(fe, n_blocks: int, seed: int = 2, le_per_block=3):
+def plant_le_capture(fe, n_blocks: int, seed: int = 2, le_per_block=3,
+                     boundary_slots=()):
     """Capture of exactly n_blocks * block_slots slots (stream_sync and
     stream both cut it into n_blocks blocks, the last zero-padded past
     the capture) with the ID packets of _classic_plan and, on each LE
     advertising channel the bank covers, le_per_block advertising
     packets per block (9-byte payloads, in slots free on that channel).
+    In each of `boundary_slots` (the last slot of a block, a shard's
+    chunk or a superblock) an ID packet and, where the bank has an
+    advertising channel, an LE advertising packet start 560 symbols in,
+    so that they end in the next chunk.
     Returns (complex64 samples, [(lap, channel, slot)],
     [(LE index, BR channel, slot)])."""
     r = np.random.default_rng(seed)
     n_slots = n_blocks * fe.block_slots
     busy: set = set()
-    plan, planted = _classic_plan(fe, n_slots, r, busy)
-    le_planted = []
     sps = fe.bank.sps
+    plan, planted, le_planted = [], [], []
+    adv = [(ch, i) for ch, i in LE_ADV_CHANNELS.items()
+           if ch in fe.bank.channels]
+    plain = [ch for ch in fe.bank.channels if ch not in LE_ADV_CHANNELS]
+    for k, slot in enumerate(boundary_slots):
+        start = (slot * SYMBOLS_PER_SLOT + 560) * sps
+        ch, lap = plain[(11 * k + 5) % len(plain)], LAPS[k % len(LAPS)]
+        bits = np.concatenate([ac_bits(lap)[:72],
+                               r.integers(0, 2, 60).astype(np.uint8)])
+        plan.append(synth.PlannedPacket(channel=ch, start_sample=start,
+                                        bits=bits))
+        planted.append((lap, ch, slot))
+        busy.add((ch, slot))
+        if adv:
+            ch, index = adv[k % len(adv)]
+            bits = le_adv_frame(index, k % 7,
+                                bytes(r.integers(0, 256, 9).tolist()))
+            plan.append(synth.PlannedPacket(
+                channel=ch, start_sample=start,
+                bits=np.concatenate([bits, np.zeros(8, np.uint8)])))
+            le_planted.append((index, ch, slot))
+            busy.add((ch, slot))
+    cplan, cplanted = _classic_plan(fe, n_slots, r, busy)
+    plan += cplan
+    planted += cplanted
     B = fe.block_slots
     stride = max(2, (B - 6) // le_per_block)
     for k, (ch, index) in enumerate(LE_ADV_CHANNELS.items()):
@@ -1204,11 +1267,11 @@ _LOG_PKT = re.compile(r"grbt\.sniffer INFO time\s+(\d+) ch\s+(\d+) LAP "
                       r"([0-9a-f]{6}) (\S+)")
 
 
-def run_cli(args, stdin: bytes, device=None):
-    """The port's btrx as a subprocess from the checkout's root, fed
-    `stdin`; `device` adds --device.  Returns (CompletedProcess, host
-    seconds)."""
-    cmd = [sys.executable, "-m", CLI, *args]
+def run_cli(args, stdin: bytes, device=None, module=CLI):
+    """The port's btrx (or another of its CLIs, `module`) as a subprocess
+    from the checkout's root, fed `stdin`; `device` adds --device.
+    Returns (CompletedProcess, host seconds)."""
+    cmd = [sys.executable, "-m", module, *args]
     if device is not None:
         cmd += ["--device", str(device)]
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1217,7 +1280,7 @@ def run_cli(args, stdin: bytes, device=None):
                        env=env, timeout=600)
     dt = time.perf_counter() - t0
     if r.returncode != 0:
-        raise RuntimeError(f"btrx exit {r.returncode}:\n"
+        raise RuntimeError(f"{module} exit {r.returncode}:\n"
                            f"{r.stderr.decode()[-3000:]}")
     return r, dt
 
@@ -1597,6 +1660,358 @@ def pool_phase(blocks_by_name, fe, n_workers: int = 4):
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+SURVEY_CLI = "gr_bluetooth_tpu_torch.kismet"
+N_SHARDS, SHARD_BLOCKS = 4, 8        # 9b: 4 shards, two superblocks
+GRID_BLOCKS = 4                      # 9c: a 2 x 2 grid, two superblocks
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _peak(devices) -> int:
+    """Peak device memory, summed over the distinct cards."""
+    return sum(torch.cuda.max_memory_allocated(d) for d in set(devices))
+
+
+def stream_keys(results):
+    """Classic and LE hit keys of BlockResults, block by block."""
+    return ([(r.slot_base, h.channel, h.clkn, h.sym_offset, h.lap, h.errors)
+             for r in results for h in r.hits],
+            [(r.slot_base, h.channel, h.index, h.clkn, h.sym_offset,
+              h.distance) for r in results for h in r.le_hits])
+
+
+def compare_streams(label, got, want):
+    """Sharded BlockResults against FrontEnd.stream's: the same blocks,
+    classic and LE hit keys exactly, slot SNR within 1e-3 dB.  Returns
+    the largest SNR difference."""
+    assert len(got) == len(want), (label, len(got), len(want))
+    (gc, gl), (wc, wl) = stream_keys(got), stream_keys(want)
+    assert gc == wc, f"{label}: classic hits differ: {set(gc) ^ set(wc)}"
+    assert gl == wl, f"{label}: LE hits differ: {set(gl) ^ set(wl)}"
+    d_snr = max(float(np.abs(a.snr_db - b.snr_db).max())
+                for a, b in zip(got, want))
+    assert d_snr <= 1e-3, f"{label}: slot SNR differs by {d_snr} dB"
+    return d_snr
+
+
+def kismet_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
+                 n_blocks=N_BLOCKS, device="cuda", cli_slots=256):
+    """Phase 9a: KismetSource over phase 4's planted capture: its frames
+    equal, in order, the one-per-(channel, clkn) reduction of the front
+    end's hits, and its tracked networks are the planted LAPs framed at
+    least twice; a BtbbDevServer client receives the snapshot and then
+    one tick's updates, none lost; then the btsurvey CLI (no --device on
+    the card) prints the synthetic piconet's row."""
+    from collections import Counter
+
+    from gr_bluetooth_tpu_torch.kismet import (BtbbDevServer, FrameQueue,
+                                               KismetSource,
+                                               TrackerBluetooth)
+    from gr_bluetooth_tpu_torch.kismet.server import parse_record
+    src = KismetSource(fs, center, block_slots=block_slots,
+                       queue=FrameQueue(maxsize=1 << 20),
+                       tracker=TrackerBluetooth(clock=lambda: 0.0),
+                       device=device)
+    x, planted = plant_capture(src.fe, n_blocks)
+    card = _on_card(device)
+    if card:
+        _zero_counts()
+    t0 = time.perf_counter()
+    n = src.run(x)
+    dt = time.perf_counter() - t0
+    counts = _counts() if card else None
+    frames = [(f.lap, f.channel, f.clkn) for f in src.queue.drain()]
+    blocks = list(src.fe.stream(x))
+    check_survey([h for r in blocks for h in r.hits], planted)
+    want = []
+    for r in blocks:
+        seen = set()
+        for h in r.hits:
+            if (h.channel, h.clkn) not in seen:
+                seen.add((h.channel, h.clkn))
+                want.append((h.lap, h.channel, h.clkn))
+    assert frames == want and n == len(want), (n, len(frames), len(want))
+    per_lap = Counter(lap for lap, _, _ in frames)
+    twice = {lap for lap, c in per_lap.items() if c >= 2}
+    assert set(per_lap) <= set(LAPS), set(per_lap) - set(LAPS)
+    assert set(src.tracker.tracked_nets) == twice, \
+        (sorted(src.tracker.tracked_nets), sorted(twice))
+    if card:
+        _want_fused(counts, n_blocks)
+
+    # the server: snapshot on connect, then one tick's dirty records
+    server = BtbbDevServer(src.tracker)
+    try:
+        with socket.create_connection(server.address, timeout=60) as c:
+            c.settimeout(60)
+            f = c.makefile()
+            snap = [parse_record(f.readline())
+                    for _ in range(len(src.tracker.tracked_nets))]
+            assert sorted(r["bdaddr"] for r in snap) == sorted(
+                net.bd_addr for net in src.tracker.tracked_nets.values())
+            src.tracker.blit()                 # everything sent is clean
+            src.run_blocks(iter(blocks[:1]))   # the first block again
+            dirty = {net.bd_addr: net.num_packets
+                     for net in src.tracker.tracked_nets.values()
+                     if net.dirty}
+            assert server.tick() == len(dirty) > 0
+            upd = {r["bdaddr"]: r["packets"]
+                   for r in (parse_record(f.readline())
+                             for _ in range(len(dirty)))}
+            assert upd == dirty, (upd, dirty)
+    finally:
+        server.close()
+    print(f"kismet: {fs / 1e6:g} Msps, {n_blocks} blocks: {n} frames equal "
+          f"in order to the one-per-(channel, clkn) reduction of the "
+          f"{sum(len(r.hits) for r in blocks)} hits; {len(twice)} tracked "
+          f"networks = the planted LAPs framed twice or more; BTBBDEV "
+          f"client: {len(snap)} snapshot records, then {len(dirty)} "
+          f"updates of one tick, none lost; launches {counts}; "
+          f"{x.shape[0] / dt:.6g} samples/s host clock ({dt:.4f} s)")
+
+    args = ["-r", f"{fs:.0f}", "-f", f"{center:.0f}", "--synthetic",
+            str(cli_slots), "--table"]
+    r, dt = run_cli(args, b"", None if card else device, module=SURVEY_CLI)
+    assert b"00:00:00:24:d9:52" in r.stdout, r.stdout.decode()[-1000:]
+    print(f"kismet: btsurvey {' '.join(args)}: exit 0 in {dt:.4f} s; "
+          f"{r.stderr.decode().strip().splitlines()[-1]}; row "
+          f"00:00:00:24:d9:52 printed")
+
+
+def sharded_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
+                  device="cuda", n_shards=N_SHARDS, n_blocks=SHARD_BLOCKS,
+                  devices=None):
+    """Phase 9b: ShardedFrontEnd over [device] * n_shards, or over
+    `devices` (one shard each) when given (the survey's max_ac_errors=1,
+    as phase 5, so that no noise hit is taken for an unplanted LAP), LE
+    on, two superblocks of planted ID and LE advertising packets, some
+    across a shard boundary and one across the superblock boundary: the
+    same hits as FrontEnd.stream, slot SNR within 1e-3 dB, the fused
+    chain's kernels once per shard and superblock; then
+    measure_scaling_efficiency.  Returns (capture planes, results)."""
+    from gr_bluetooth_tpu_torch.parallel import (ShardedFrontEnd,
+                                                 measure_scaling_efficiency)
+    if devices is not None:
+        device, n_shards = devices[0], len(devices)
+    fe = frontend.FrontEnd(fs, center, block_slots=block_slots,
+                           max_ac_errors=1, enable_le=True, device=device)
+    if devices is None:
+        devices = [torch.device(fe.device)] * n_shards
+    sfe = ShardedFrontEnd(fe, devices)
+    B = block_slots
+    # the last slot of shard 0's chunk and of the first superblock
+    x, planted, le_planted = plant_le_capture(
+        fe, n_blocks, seed=6, le_per_block=1,
+        boundary_slots=(B - 1, 2 * B - 1, n_shards * B - 1))
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    card = _on_card(fe.device)
+    if card:
+        _zero_counts()
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    got = sfe.process(planes)
+    if card:
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+    dt = time.perf_counter() - t0
+    counts = _counts() if card else None
+    peak = _peak(devices) if card else None
+    n_sb = n_blocks // n_shards
+    if card:
+        _want_fused(counts, n_shards * n_sb)
+    t0 = time.perf_counter()
+    want = list(fe.stream(planes))
+    dt_stream = time.perf_counter() - t0
+    d_snr = compare_streams("sharded", got, want)
+    n_found = check_survey([h for r in got for h in r.hits], planted)
+    n_le = check_le([h for r in got for h in r.le_hits], le_planted)
+    n_in = planes.shape[1]
+    on = ", ".join(sorted({str(d) for d in devices}))
+    print(f"sharded: {n_shards} shards on {on}, {n_sb} superblocks "
+          f"of {n_shards} x {B} slots ({n_in} samples): hits equal to "
+          f"FrontEnd.stream's ({len(stream_keys(got)[0])} classic, "
+          f"{len(stream_keys(got)[1])} LE), slot SNR within {d_snr:.3e} "
+          f"dB; {n_found} (LAP, channel) pairs and {n_le} LE packets "
+          f"found, boundary packets among them; launches {counts}; "
+          f"{n_in / dt:.6g} samples/s host clock, first call ({dt:.4f} s),"
+          f" FrontEnd.stream after it {n_in / dt_stream:.6g}; peak device "
+          f"memory "
+          f"{'not measured' if peak is None else f'{peak / 2 ** 20:.1f} MiB'}")
+
+    if card:
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+    eff = measure_scaling_efficiency(fe, devices, n_superblocks=2,
+                                     repeats=3)
+    peak = _peak(devices) if card else None
+    print(f"sharded scaling ({n_shards} shards on {on}): "
+          f"efficiency {eff['efficiency']:.4f} "
+          f"[q25 {eff['efficiency_q25']:.4f}, q75 {eff['efficiency_q75']:.4f}]"
+          f", halo cost {eff['halo_cost_ms']:.4f} ms per run of 2 "
+          f"superblocks (jitter {eff['timer_jitter_ms']:.4f} ms, noise "
+          f"floor {eff['noise_floor']}), sharded {eff['sharded_sps']:.6g} / "
+          f"ideal {eff['ideal_sps']:.6g} / one-device loop "
+          f"{eff['scan_1dev_sps']:.6g} samples/s, speedup against the loop "
+          f"{eff['speedup_vs_scan_1dev']:.4f}; peak device memory "
+          f"{'not measured' if peak is None else f'{peak / 2 ** 20:.1f} MiB'}")
+    print(f"sharded scaling, every figure: {json.dumps(eff)}")
+    return planes, got
+
+
+def fused_kernel_checks(label, s, c, xb):
+    """pfb_snr, demod_pack and detect_words on one block, with the
+    statics `s` and the constants `c` on their device (which need not be
+    the current one), against their plain versions with phase 3's
+    bounds."""
+    xb = xb.to(c["h0"].device)
+    Q, D = c["h0"].shape
+    n, n_data, S, n_k, n_frames = frontend.step_geometry(
+        xb.shape[1], Q, D, s["n_sym"], s["slot_ch"], c["probe_re"].shape[0])
+    bank = (c["h0"], c["h1"], c["dft_c"], c["dft_s"], c["bin_odd"])
+    yr, yi, oe = pfb_kernel.pfb_snr(xb, *bank, n_frames)
+    pr, pi, poe = pfb_kernel.pfb_snr_plain(xb, *bank, n_frames)
+    err_y = max((yr - pr).abs().max().item(), (yi - pi).abs().max().item())
+    assert err_y <= 2e-5, (label, err_y)
+    args = (yr, yi, s["demod_gain"], s["n_sym"], c["probe_re"],
+            c["probe_im"], n_k, n_data)
+    words, pe = demod_kernel.demod_pack(*args)
+    pwords, ppe = demod_kernel.demod_pack_plain(*args)
+    diff = detect_kernel.popcount((words ^ pwords).to(torch.int64)
+                                  & 0xFFFFFFFF).sum().item()
+    n_bits = words.shape[0] * s["n_sym"]
+    assert diff <= n_bits * 1e-5, (label, diff, n_bits)
+    dargs = (words[:-1], s["n_sym"] - 72 + 1, s["max_ac_errors"],
+             c["ac_masks"])
+    hit, gate, _ = detect_kernel.detect_words(*dargs)
+    phit, pgate, _ = detect_kernel.detect_words_plain(*dargs)
+    assert torch.equal(hit, phit) and torch.equal(gate, pgate), label
+    print(f"{label}, {c['dft_c'].shape[1]} DFT columns on {xb.device}: "
+          f"pfb_snr y within {err_y:.3e} (2e-5), demod_pack {diff} of "
+          f"{n_bits} symbols mismatched, detect_words planes "
+          f"{tuple(hit.shape)} exact")
+
+
+def group_kernel_checks(s2, xb):
+    """The three kernels at each channel group's width (Cg + 1 DFT
+    columns) on one block."""
+    for g, col in enumerate(s2.columns):
+        last = s2.starts[g] + s2.group_size - 1
+        fused_kernel_checks(f"group {g} (channels {s2.starts[g]}..{last})",
+                            s2.fe.statics, col.consts[0], xb)
+
+
+def grid_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
+               device="cuda", n_blocks=GRID_BLOCKS, grid=None):
+    """Phase 9c: Sharded2DFrontEnd on a 2 x 2 grid of `device` (or on
+    `grid`, a 2 x 2 nested list of devices), LE on: the same hits as
+    FrontEnd.stream, the fused chain's kernels once per shard and
+    superblock, and the three kernels at the group width against their
+    plain versions."""
+    from gr_bluetooth_tpu_torch.parallel import Sharded2DFrontEnd
+    fe = frontend.FrontEnd(fs, center, block_slots=block_slots,
+                           max_ac_errors=1, enable_le=True,
+                           device=grid[0][0] if grid else device)
+    dev = torch.device(fe.device)
+    grid = grid or [[dev, dev], [dev, dev]]
+    s2 = Sharded2DFrontEnd(fe, grid)
+    x, planted, le_planted = plant_le_capture(
+        fe, n_blocks, seed=8, le_per_block=1,
+        boundary_slots=(block_slots - 1, 2 * block_slots - 1))
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    card = _on_card(dev)
+    if card:
+        _zero_counts()
+    t0 = time.perf_counter()
+    got = s2.process(planes)
+    dt = time.perf_counter() - t0
+    counts = _counts() if card else None
+    if card:
+        _want_fused(counts, 2 * n_blocks)
+    want = list(fe.stream(planes))
+    d_snr = compare_streams("2-D", got, want)
+    check_survey([h for r in got for h in r.hits], planted)
+    check_le([h for r in got for h in r.le_hits], le_planted)
+    on = ", ".join(sorted({str(d) for row in grid for d in row}))
+    print(f"2-D: 2 x 2 grid on {on}, groups of {s2.group_size} channels "
+          f"from {s2.starts} (valid from {s2.valid_start}), "
+          f"{n_blocks} blocks: hits equal to FrontEnd.stream's "
+          f"({len(stream_keys(got)[0])} classic, "
+          f"{len(stream_keys(got)[1])} LE), slot SNR within {d_snr:.3e} "
+          f"dB; launches {counts}; {planes.shape[1] / dt:.6g} samples/s "
+          f"host clock, first call")
+    xb = fe.to_planes(planes[:, :fe.block_samples])
+    group_kernel_checks(s2, xb)
+
+
+def two_process_phase(planes, results, fs=FS, center=CENTER,
+                      block_slots=BLOCK_SLOTS, device="cuda:0",
+                      n_shards=N_SHARDS, n_procs=2, backend="gloo"):
+    """Phase 9d: n_procs processes under a `backend` process group,
+    n_shards / n_procs shards each on `device` ("{rank}" in it is the
+    process's rank), through device_put_local: process 0's hits equal
+    phase 9b's."""
+    from gr_bluetooth_tpu_torch.parallel.worker import hit_keys, launch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.npy")
+        np.save(path, planes)
+        t0 = time.perf_counter()
+        got = launch(n_procs, path, rate=fs, freq=center,
+                     block_slots=block_slots, shards=n_shards // n_procs,
+                     device=str(device), backend=backend, enable_le=True,
+                     max_ac_errors=1, timeout=300)
+        dt = time.perf_counter() - t0
+    classic, le = hit_keys(results)
+    assert got["hits"] == classic, "multi-process classic hits differ"
+    assert got["le_hits"] == le, "multi-process LE hits differ"
+    assert got["backend"] == backend and got["blocks"] == len(results)
+    how = ("through host memory" if backend == "gloo"
+           else "device to device")
+    print(f"{n_procs} processes: {backend}, {n_shards // n_procs} shards "
+          f"each on {device}, halo {how}: {len(classic)} classic and "
+          f"{len(le)} LE hits equal to the one-process run's; {dt:.4f} s "
+          f"wall, process start included (stream {got['seconds']:.4f} s "
+          f"in process 0)")
+
+
+def multicard_phase(n_cards: int):
+    """`--cards N`: phase 9 across N cards (N even, at least 2): the
+    three fused kernels on every card with card 0 current; 9b with one
+    shard per card; 9c on the grid [[0, 1], [2, 3]] (the first four
+    cards, or [[0, 1], [0, 1]] with two); 9d under NCCL, one process
+    per card; then parallel.dryrun.dryrun_multichip(N) on the cards."""
+    from gr_bluetooth_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gr_bluetooth_tpu_torch.parallel.sharded import host_consts
+    have = torch.cuda.device_count()
+    assert have >= n_cards >= 2 and n_cards % 2 == 0, (have, n_cards)
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    with timed("phase 9m-a, kernels on every card"):
+        fe = frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
+                               device=cards[0])
+        x, _ = plant_capture(fe, 1, seed=9)
+        xb = fe.to_planes(x[: fe.block_samples])
+        host = host_consts(fe)
+        with torch.cuda.device(cards[0]):
+            for d in reversed(cards):
+                fused_kernel_checks(f"card {d}, card 0 current", fe.statics,
+                                    frontend.consts_to_device(host, d), xb)
+    with timed("phase 9m-b, one shard per card"):
+        planes, sharded = sharded_phase(devices=cards)
+    with timed("phase 9m-c, a grid over the cards"):
+        grid_phase(grid=[cards[0:2], cards[2:4] if n_cards >= 4
+                         else cards[0:2]])
+    with timed("phase 9m-d, NCCL, one process per card"):
+        two_process_phase(planes, sharded, device="cuda:{rank}",
+                          n_shards=n_cards, n_procs=n_cards,
+                          backend="nccl")
+    with timed("phase 9m-e, dry run"):
+        dryrun_multichip(n_cards, cards)
+
+
 @contextlib.contextmanager
 def timed(label: str):
     """Print a phase's wall time when it ends."""
@@ -1605,7 +2020,14 @@ def timed(label: str):
     print(f"[{label}: {time.perf_counter() - t0:.1f} s wall]")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="the port's smoke test on "
+                                 "the card; see the module's notes")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="N > 1: only the build and phase 9 across N "
+                         "cards (one shard and one NCCL process per card)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1624,6 +2046,13 @@ def main() -> int:
         print(f"built {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
         for name, log in cuda_build.build_logs.items():
             print(f"--- nvcc {name}\n{log.strip()}")
+    if opts.cards > 1:
+        multicard_phase(opts.cards)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     with timed("phase 3, kernels and steps"):
         survey = LapSurvey(FS, CENTER, block_slots=BLOCK_SLOTS)
@@ -1674,6 +2103,17 @@ def main() -> int:
     with timed("phase 8d, multiprocess host decode"):
         pool_phase({name: blocks for name, (_, blocks) in fetched.items()},
                    fetched["max_rate"][0])
+
+    with timed("phase 9a, Kismet survey"):
+        kismet_phase()
+    with timed("phase 9b, time-sharded front end"):
+        planes, sharded = sharded_phase()
+    with timed("phase 9c, time x channel-group grid"):
+        grid_phase()
+    with timed("phase 9d, two processes"):
+        two_process_phase(planes, sharded)
+    print("two processes: the NCCL path (halo device to device) was not "
+          "run: NCCL refuses two ranks on one GPU (`--cards N` runs it)")
 
     launches[DETECT_ERR] = err_launches
     out = []

@@ -427,20 +427,24 @@ extern "C" int demod_pack_launch(const float* yr, const float* yi, int C,
     if (T < 1 || T > TMAX) return (int)cudaErrorInvalidValue;
     // persistent grid: every block the card holds at once, each taking a
     // contiguous run of groups, the runs as even as they divide (SM count
-    // and occupancy cached)
-    static int slots = 0;
+    // and occupancy cached per device: a process may launch on several)
+    constexpr int MAX_DEV = 64;
+    static int slots_of[MAX_DEV] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
+    int slots = slots_of[dev];
     if (!slots) {
-        int dev = 0, sms = 0, occ = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
+        int sms = 0, occ = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
         if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &occ, demod_pack_kernel, THREADS, 0);
         if (err != cudaSuccess) return (int)err;
         if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-        slots = sms * occ;
+        slots = slots_of[dev] = sms * occ;
     }
     const int total = C * n_groups;
     const int grid = total < slots ? total : slots;

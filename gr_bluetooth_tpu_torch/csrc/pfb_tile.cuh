@@ -146,37 +146,42 @@ inline int plan(int D, int Q, int C, int ld, int plane, Layout* L,
 }
 
 // Blocks per bin group of a persistent launch of `fn` (THREADS threads,
-// smem bytes of dynamic shared memory): as many as the card holds at
-// once, no more than there are tiles.  Raises fn's shared-memory limit
-// on first use; the occupancy is cached per (fn, smem).
+// smem bytes of dynamic shared memory) on the current device: as many as
+// the card holds at once, no more than there are tiles.  Raises fn's
+// shared-memory limit on first use on each device (CUDA keeps function
+// attributes per device); the occupancy is cached per (device, fn,
+// smem), the SM count per device.
 inline int grid_x(const void* fn, size_t smem, int groups, long long n_tiles,
                   int* gx)
 {
-    struct Seen { const void* fn; size_t smem; int occ; };
-    static Seen seen[64];
-    static int n_seen = 0, sms = 0;
+    constexpr int MAX_DEV = 64;
+    struct Seen { int dev; const void* fn; size_t smem; int occ; };
+    static Seen seen[256];
+    static int n_seen = 0, sms[MAX_DEV] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
     int occ = 0;
     for (int i = 0; i < n_seen && !occ; ++i)
-        if (seen[i].fn == fn && seen[i].smem == smem) occ = seen[i].occ;
+        if (seen[i].dev == dev && seen[i].fn == fn && seen[i].smem == smem)
+            occ = seen[i].occ;
     if (!occ) {
-        cudaError_t err = cudaFuncSetAttribute(
+        err = cudaFuncSetAttribute(
             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
         if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &occ, fn, THREADS, smem);
         if (err != cudaSuccess) return (int)err;
         if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-        if (n_seen < 64) seen[n_seen++] = Seen{fn, smem, occ};
+        if (n_seen < 256) seen[n_seen++] = Seen{dev, fn, smem, occ};
     }
-    if (!sms) {
-        int dev = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(
-                &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!sms[dev]) {
+        err = cudaDeviceGetAttribute(&sms[dev],
+                                     cudaDevAttrMultiProcessorCount, dev);
         if (err != cudaSuccess) return (int)err;
     }
-    long long n = (long long)sms * occ / groups;
+    long long n = (long long)sms[dev] * occ / groups;
     if (n > n_tiles) n = n_tiles;
     *gx = n < 1 ? 1 : (int)n;
     return 0;

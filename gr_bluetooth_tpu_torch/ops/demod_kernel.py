@@ -171,12 +171,13 @@ def demod_pack(yr, yi, gain: float, n_sym: int, taps_re, taps_im,
     nw = -(-n_sym // 32)
     words = torch.empty((C, nw), dtype=torch.int32, device=yr.device)
     pe = torch.empty((C, n_k), dtype=torch.float32, device=yr.device)
-    stream = torch.cuda.current_stream(yr.device).cuda_stream
-    rc = _launcher()(yr.data_ptr(), yi.data_ptr(), C, F, float(gain), n_sym,
-                     n_groups(n_sym, n_k), n_data_groups,
-                     taps_re.data_ptr(), taps_im.data_ptr(),
-                     taps_re.shape[0], n_k, words.data_ptr(), nw,
-                     pe.data_ptr(), stream)
+    with torch.cuda.device(yr.device):
+        stream = torch.cuda.current_stream(yr.device).cuda_stream
+        rc = _launcher()(yr.data_ptr(), yi.data_ptr(), C, F, float(gain),
+                         n_sym, n_groups(n_sym, n_k), n_data_groups,
+                         taps_re.data_ptr(), taps_im.data_ptr(),
+                         taps_re.shape[0], n_k, words.data_ptr(), nw,
+                         pe.data_ptr(), stream)
     cuda_build.check(rc, "demod_pack")
     demod_pack.launches += 1
     return words, pe

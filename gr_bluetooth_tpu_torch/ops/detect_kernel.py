@@ -183,9 +183,10 @@ def detect_words(words, n: int, max_ac_errors: int, masks,
     n_words = -(-n // 32)
     planes = torch.empty((2 + N_ERR if emit_err else 2, C, n_words),
                          dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    rc = _launcher()(words.data_ptr(), C, W, n, int(max_ac_errors),
-                     planes.data_ptr(), n_words, int(emit_err), stream)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = _launcher()(words.data_ptr(), C, W, n, int(max_ac_errors),
+                         planes.data_ptr(), n_words, int(emit_err), stream)
     cuda_build.check(rc, "detect_words")
     if emit_err:
         detect_words.err_launches += 1

@@ -138,9 +138,10 @@ def deinterleave(x, D: int):
     x = x.contiguous()
     n_x = x.shape[1] // D
     out = torch.empty((2, D, n_x), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _deint_launcher()(x.data_ptr(), x.shape[1], n_x, D, out.data_ptr(),
-                           stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _deint_launcher()(x.data_ptr(), x.shape[1], n_x, D,
+                               out.data_ptr(), stream)
     cuda_build.check(rc, "deinterleave")
     deinterleave.launches += 1
     return out

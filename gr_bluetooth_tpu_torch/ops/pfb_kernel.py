@@ -121,11 +121,14 @@ def pfb_snr(x, h0, h1, dft_c, dft_s, bin_odd, n_frames: int):
     oe = torch.empty((C, n_frames // TF), dtype=torch.float32,
                      device=x.device)
     n_x = x.shape[1] // D
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _launcher()(x.data_ptr(), n_x * D, x.shape[1], h0.data_ptr(),
-                     h1.data_ptr(), dft_c.data_ptr(), dft_s.data_ptr(),
-                     bin_odd.data_ptr(), Q, D, C, n_frames, yr.data_ptr(),
-                     yi.data_ptr(), oe.data_ptr(), stream)
+    # the launch and its stream on the tensors' device, whichever device
+    # is the host thread's current one
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _launcher()(x.data_ptr(), n_x * D, x.shape[1], h0.data_ptr(),
+                         h1.data_ptr(), dft_c.data_ptr(), dft_s.data_ptr(),
+                         bin_odd.data_ptr(), Q, D, C, n_frames,
+                         yr.data_ptr(), yi.data_ptr(), oe.data_ptr(), stream)
     cuda_build.check(rc, "pfb_snr")
     pfb_snr.launches += 1
     return yr, yi, oe
@@ -195,11 +198,13 @@ def pfb_channelize(xp, h0, h1, dft_c, dft_s, bin_odd):
         t.contiguous() for t in (xp, h0, h1, dft_c, dft_s, bin_odd))
     yr = torch.empty((C, n_x - 2 * Q), dtype=torch.float32, device=xp.device)
     yi = torch.empty_like(yr)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = _channelize_launcher()(xp.data_ptr(), n_x, h0.data_ptr(),
-                                h1.data_ptr(), dft_c.data_ptr(),
-                                dft_s.data_ptr(), bin_odd.data_ptr(), Q, D,
-                                C, yr.data_ptr(), yi.data_ptr(), stream)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        rc = _channelize_launcher()(xp.data_ptr(), n_x, h0.data_ptr(),
+                                    h1.data_ptr(), dft_c.data_ptr(),
+                                    dft_s.data_ptr(), bin_odd.data_ptr(), Q,
+                                    D, C, yr.data_ptr(), yi.data_ptr(),
+                                    stream)
     cuda_build.check(rc, "pfb_channelize")
     pfb_channelize.launches += 1
     return yr, yi

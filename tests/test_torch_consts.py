@@ -4,8 +4,9 @@
     JAX package's (make_pfb_bank, make_stream_snr_consts, affine_code,
     _word_slot_consts), and convert.consts_from_jax reproduces them;
   * wire_decode is bit-identical to wire_decode_np for every format;
-  * no file of the port (its CLI in apps/ and the I/O, resampler,
-    conv-bank, parallel-decode and blocks modules among them), and not
+  * no file of the port (its CLI in apps/, the I/O, resampler,
+    conv-bank, parallel-decode and blocks modules, the Kismet survey in
+    kismet/ and the sharded front ends in parallel/ among them), and not
     chip_smoke.py, imports jax or gr_bluetooth_tpu;
   * entry points with no device on a machine without a card raise, odd
     and off-grid rates build their own front ends (an odd rate's has no
@@ -31,8 +32,10 @@ from gr_bluetooth_tpu.ops import synth as jsynth
 from gr_bluetooth_tpu_torch import convert
 from gr_bluetooth_tpu_torch.core import access_code
 from gr_bluetooth_tpu_torch.io import ingest, native
+from gr_bluetooth_tpu_torch.kismet import KismetSource
 from gr_bluetooth_tpu_torch.models import frontend, lap_survey
 from gr_bluetooth_tpu_torch.ops import pfb, pfb_kernel, snr, synth
+from gr_bluetooth_tpu_torch.parallel import ShardedFrontEnd
 
 ROOT = Path(__file__).resolve().parent.parent
 RATES = [(4e6, 2441e6), (8e6, 2426e6), (20e6, 2450e6), (80e6, 2441e6)]
@@ -142,7 +145,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"apps/__init__.py", "apps/btrx.py", "blocks.py", "io/native.py",
             "io/sources.py", "io/writers.py", "io/ingest.py",
             "models/parallel_host.py", "ops/resample.py",
-            "ops/channelizer.py", "ops/snr.py"} <= scanned
+            "ops/channelizer.py", "ops/snr.py", "kismet/__main__.py",
+            "kismet/source.py", "kismet/server.py", "parallel/sharded.py",
+            "parallel/sharded2d.py", "parallel/dryrun.py",
+            "parallel/worker.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -190,6 +196,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         frontend.FrontEnd(8e6, 2441e6)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lap_survey.LapSurvey(8e6, 2441e6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KismetSource(8e6, 2441e6)
+    fe = frontend.FrontEnd(4e6, 2441e6, block_slots=8, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedFrontEnd(fe)
 
 
 @pytest.mark.parametrize("kw", [dict(sample_rate=5e6),

@@ -690,3 +690,72 @@ def test_cli_without_device_runs_on_the_card(cuda):
                        env=dict(os.environ, PYTHONPATH=chip_smoke.ROOT))
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     assert b"LAP 24d952" in r.stdout
+
+
+def test_sharded_front_end_on_card(cuda):
+    """chip_smoke.py's phase 9b at 8 Msps: four shards on the card, each
+    on its own stream, LE on, two superblocks with packets across shard
+    and superblock boundaries: the same hits as FrontEnd.stream, the
+    fused chain's kernels once per shard and superblock."""
+    planes, results = chip_smoke.sharded_phase(
+        8e6, 2426e6, block_slots=8, device=cuda, n_shards=4, n_blocks=8)
+    assert len(results) == 8 and any(r.le_hits for r in results)
+
+
+def test_grid_front_end_on_card(cuda):
+    """chip_smoke.py's phase 9c at 8 Msps: a 2 x 2 grid on the card, the
+    same hits as FrontEnd.stream, and the three kernels at the group
+    width (5 DFT columns) against their plain versions."""
+    chip_smoke.grid_phase(8e6, 2426e6, block_slots=8, device=cuda,
+                          n_blocks=4)
+
+
+def test_sharded_outputs_on_card_match_cpu(cuda):
+    """The sharded step's stacked outputs on the card equal the CPU's:
+    hit counts and tables exactly, slot SNR within 1e-3 dB, windows up
+    to one mismatched symbol per 10^5."""
+    from gr_bluetooth_tpu_torch.parallel import ShardedFrontEnd
+    fe_g = FrontEnd(8e6, 2426e6, block_slots=8, enable_le=True)
+    fe_c = FrontEnd(8e6, 2426e6, block_slots=8, enable_le=True,
+                    device="cpu")
+    x, _, _ = chip_smoke.plant_le_capture(fe_g, 4, seed=3)
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    outs = []
+    for fe, dev in ((fe_g, cuda), (fe_c, torch.device("cpu"))):
+        sfe = ShardedFrontEnd(fe, [dev] * 4)
+        outs.append([o.cpu() for o in sfe.step(
+            sfe.device_put(planes), np.zeros((2, sfe.overlap_samples),
+                                             np.float32))])
+    g, c = outs
+    torch.testing.assert_close(g[0], c[0], atol=1e-3, rtol=0)
+    for i in (1, 2, 4, 5):
+        assert torch.equal(g[i], c[i]), i
+    for i in (3, 6):
+        assert _popcount_diff(g[i], c[i]) <= max(1, g[i].numel() * 32e-5)
+
+
+def _two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_kernels_on_a_card_that_is_not_the_current_one(cuda):
+    """The wrappers launch under their tensors' device: the three fused
+    kernels on card 1 with card 0 current (card 1 launched first, so its
+    shared-memory attribute and occupancy are set on card 1 itself)."""
+    c0, c1 = _two_cards(cuda)
+    fe = FrontEnd(8e6, 2441e6, block_slots=8, device=c1)
+    x, _ = chip_smoke.plant_capture(fe, 1, seed=2)
+    xb = fe.to_planes(x[: fe.block_samples])
+    with torch.cuda.device(c0):
+        chip_smoke.fused_kernel_checks("card 1, card 0 current",
+                                       fe.statics, fe.consts, xb)
+
+
+def test_shards_on_two_cards_match_stream(cuda):
+    """Four shards alternating over two cards (peer halo copies): the
+    same hits as FrontEnd.stream."""
+    c0, c1 = _two_cards(cuda)
+    chip_smoke.sharded_phase(8e6, 2426e6, block_slots=8, n_blocks=8,
+                             devices=[c0, c1, c0, c1])

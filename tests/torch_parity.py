@@ -158,13 +158,17 @@ REPO = __import__("os").path.dirname(__import__("os").path.dirname(
     __import__("os").path.abspath(__file__)))
 CLIS = {"jax": ("gr_bluetooth_tpu.apps.btrx", []),
         "port": ("gr_bluetooth_tpu_torch.apps.btrx", ["--device", "cpu"])}
+SURVEY_CLIS = {"jax": ("gr_bluetooth_tpu.kismet", []),
+               "port": ("gr_bluetooth_tpu_torch.kismet", ["--device", "cpu"])}
 
 
-def run_clis(make_args, stdin=None, timeout=300, names=("jax", "port")):
-    """Both packages' btrx as subprocesses side by side on the same input
-    (the port's with --device cpu), each on one CPU thread
-    (OMP_NUM_THREADS=1): make_args(name) gives each its arguments.
-    Returns {name: CompletedProcess}."""
+def run_clis(make_args, stdin=None, timeout=300, names=("jax", "port"),
+             clis=CLIS):
+    """Both packages' btrx (or, with clis=SURVEY_CLIS, btsurvey) as
+    subprocesses side by side on the same input (the port's with
+    --device cpu), each on one CPU thread (OMP_NUM_THREADS=1):
+    make_args(name) gives each its arguments.  Returns {name:
+    CompletedProcess}."""
     import os
     import subprocess
     import sys
@@ -174,7 +178,7 @@ def run_clis(make_args, stdin=None, timeout=300, names=("jax", "port")):
                OMP_NUM_THREADS="1")
 
     def one(name):
-        mod, extra = CLIS[name]
+        mod, extra = clis[name]
         return subprocess.run(
             [sys.executable, "-m", mod] + list(make_args(name)) + extra,
             input=stdin, capture_output=True, timeout=timeout, env=env,
