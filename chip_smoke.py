@@ -26,6 +26,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    two chains and profile a few steps of each: the fused chain
    (FrontEnd.fused_step, which stream() runs) and the flat chain
    (FrontEnd.device_step, which stream_sync() runs);
+   3d. the compiled steps (FrontEnd.compiled_step: a CUDA graph captured
+   once, one replay per block) of the fused chain with LE off and on,
+   the flat chain with LE on and the 81 Msps conv bank, each on its
+   block against its eager step, bit for bit (SNR, counts, tables and
+   windows); event ms per block and device-busy share of both forms;
+   then stream() over phase 4's capture with the eager ingest and the
+   compiled one, in turns: the same hits, samples/s and the stage split
+   (wire_encode, h2d, device_step, assemble).  From here on every path
+   (phases 4 to 9) runs its step as graph replays, and the launch counts
+   it checks count each replay's launches (utils/graph.py);
 4. the main path: LapSurvey(80e6, 2441e6, block_slots=64).run over a
    synthesized capture of a few blocks with ID packets of 7 LAPs planted
    on 24 channels (0 and 78 among them), several per slot, through the
@@ -147,14 +157,16 @@ result.
     python3 chip_smoke.py --cards 4      # on a machine with four cards
 
 builds the kernels and runs only phase 9 across the cards
-(multicard_phase): the three fused kernels on every card with card 0
-current, 9b with one shard per card, 9c on the grid [[0, 1], [2, 3]],
+(multicard_phase): the three fused kernels and a compiled fused step
+(a graph of that card's own) on every card with card 0 current, 9b
+with one shard (one graph) per card, 9c on the grid [[0, 1], [2, 3]],
 9d under NCCL with a process per card, then dryrun_multichip(N); its
 last line is the same {"ok": true, ...} with the cards' count.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import math
@@ -175,6 +187,7 @@ from gr_bluetooth_tpu_torch.constants import (LE_ADV_AA, SYMBOLS_PER_SLOT,
                                               TYPE_NAMES)
 from gr_bluetooth_tpu_torch.core import whitening
 from gr_bluetooth_tpu_torch.core.access_code import ac_bits
+from gr_bluetooth_tpu_torch.io import ingest
 from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.models.hopper import Hopper
 from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
@@ -837,6 +850,27 @@ def kernel_checks(fe, xb):
     return rows, wd
 
 
+def device_events(fn, n: int):
+    """torch.profiler over n calls of fn: its device-side events (a host
+    op's device time repeats that of the kernels it launched), busiest
+    first, and the window's host-clock seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and
+           e.self_device_time_total > 0]
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    return evs, wall
+
+
 def step_profile(label, step, xb, kernels, reps: int = 20):
     """Phase 3b: one block's whole device step on one chain (`step`, its
     kernels and the torch glue between them) timed with CUDA events, and
@@ -848,23 +882,8 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
     ms = time_ms(lambda: step(xb), reps)
     print(f"{label} step: {ms:.4f} ms per block (CUDA events, {reps} "
           f"steps)")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n = 5
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step(xb)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only: a host op's device time repeats that of
-    # the kernels it launched
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and
-           e.self_device_time_total > 0]
-    evs.sort(key=lambda e: -e.self_device_time_total)
+    evs, wall = device_events(lambda: step(xb), n)
     busy = sum(e.self_device_time_total for e in evs) / 1e3 / n
     assert busy > 0, "the profiler saw no device time"
     print(f"{label} profiler: {n} steps, device busy {busy:.4f} ms per "
@@ -882,6 +901,120 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
         assert t, f"{name}_kernel not in the profile"
         prof_ms[name] = sum(t) / n / 1e3
     return prof_ms
+
+
+# ------------------------------------------------------------------ phase 3d
+
+STEP_OUTPUTS = ("snr_db", "n_hits", "tab", "windows", "n_le", "le_tab",
+                "le_windows")
+
+
+class EagerIngest(ingest.PipelinedIngest):
+    """PipelinedIngest with its step run op by op at every block (a
+    CompiledStep that is not a graph): the eager form of stream(), which
+    phase 3d holds the compiled one to."""
+
+    def _build(self, graph=None):
+        return super()._build(graph=False)
+
+
+def check_replay(label, got, want):
+    """A compiled step's outputs against the eager step's: every output
+    bit for bit (the SNR's float32 bits, the counts, hit tables and
+    windows)."""
+    assert len(got) == len(want) == len(STEP_OUTPUTS), label
+    for name, g, w in zip(STEP_OUTPUTS, got, want):
+        assert (g is None) == (w is None), (label, name)
+        if g is None:
+            continue
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.shape == w.shape and torch.equal(g, w), (label, name)
+
+
+def busy_ms(fn, n: int = 5):
+    """Device time of fn per call (kernels, copies and memsets) from a
+    profiler window over n calls, or None when it saw no device time."""
+    t = sum(e.self_device_time_total for e in device_events(fn, n)[0])
+    return t / 1e3 / n if t > 0 else None
+
+
+def _share(busy, ms):
+    return ("not measured (the profiler saw no device time)" if busy is None
+            else f"{busy:.4f} ms = {100 * busy / ms:.1f}%")
+
+
+def compiled_phase(fe, fe_le, xb):
+    """Phase 3d: each chain's compiled step (FrontEnd.compiled_step, one
+    CUDA graph replay) on phase 3's block against its eager step, bit for
+    bit: fused LE off, fused LE on, flat LE on, and the conv bank at
+    81 Msps (its own planted block).  Event ms per block of each form
+    and the device-busy share of each; then stream() over phase 4's
+    capture, eager and compiled, in turns: the same hits, samples/s and
+    the stage split."""
+    fe81 = frontend.FrontEnd(81e6, CENTER, block_slots=BLOCK_SLOTS)
+    x81, _ = plant_capture(fe81, 1, seed=3)
+    xb81 = fe81.to_planes(x81[: fe81.block_samples])
+    chains = (("fused LE off", fe, "fused", xb),
+              ("fused LE on", fe_le, "fused", xb),
+              ("flat LE on", fe_le, "flat", xb),
+              ("conv bank 81 Msps", fe81, "flat", xb81))
+    for label, f, chain, x in chains:
+        eager = f.fused_step if chain == "fused" else f.device_step
+        want = [None if o is None else o.clone() for o in eager(x)]
+        step = f.compiled_step(chain)
+        check_replay(label, step(x), want)
+        check_replay(label + ", again", step(x), want)
+        run_eager = functools.partial(eager, x)
+        e_ms, r_ms = time_ms(run_eager, 20), time_ms(step.replay, 20)
+        e_busy, r_busy = busy_ms(run_eager), busy_ms(step.replay)
+        print(f"compiled {label}: replay equals eager bit for bit (SNR, "
+              f"counts, tables, windows); eager {e_ms:.4f} ms per block, "
+              f"device busy {_share(e_busy, e_ms)}; replay {r_ms:.4f} ms "
+              f"per block, device busy {_share(r_busy, r_ms)} (CUDA "
+              f"events, 20 steps; profiler, 5); launches per replay "
+              f"{step.launches_per_replay}")
+    stream_phase()
+
+
+def stream_phase(n_blocks: int = N_BLOCKS, runs: int = 2):
+    """stream() over phase 4's capture on two fresh front ends of the
+    survey's configuration, one with the eager ingest (EagerIngest), one
+    compiled: a cold run each, then `runs` warm runs each in turns
+    (e, c, c, e, ...): the same hits, samples/s host clock to the last
+    result and the stage split (metrics: wire_encode, h2d, device_step,
+    assemble, ms per block)."""
+    from gr_bluetooth_tpu_torch.utils.metrics import metrics
+    fes = {form: frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
+                                   max_ac_errors=1)
+           for form in ("eager", "compiled")}
+    fes["eager"]._ingests["f32"] = EagerIngest(fes["eager"], "f32")
+    x, planted = plant_capture(fes["compiled"], n_blocks)
+    n_in = n_blocks * fes["compiled"].step_samples
+    cold = {form: list(f.stream(x)) for form, f in fes.items()}
+    keys = {form: stream_keys(res) for form, res in cold.items()}
+    assert keys["eager"] == keys["compiled"], "stream() hits differ"
+    check_survey([h for r in cold["compiled"] for h in r.hits], planted)
+    order = [("eager", "compiled")[(i + i // 2) % 2] for i in range(2 * runs)]
+    for form in order:
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(fes[form].stream(x))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert stream_keys(got) == keys[form]
+        st = metrics.snapshot()["stages"]
+        split = ", ".join(f"{k} {st[k]['total_s'] * 1e3 / n_blocks:.4f}"
+                          for k in ("wire_encode", "h2d", "device_step",
+                                    "assemble") if k in st)
+        print(f"stream() {form}: {n_in / dt:.6g} samples/s host clock "
+              f"({dt:.4f} s for {n_blocks} blocks, warm); stage ms per "
+              f"block: {split}")
+    ing = fes["compiled"]._ingests["f32"]
+    print(f"stream() compiled: {len(keys['compiled'][0])} hits equal to "
+          f"the eager ingest's; launches per replay "
+          f"{ing._step.launches_per_replay}")
 
 
 def main_path(survey, n_blocks: int):
@@ -1980,7 +2113,9 @@ def two_process_phase(planes, results, fs=FS, center=CENTER,
 
 def multicard_phase(n_cards: int):
     """`--cards N`: phase 9 across N cards (N even, at least 2): the
-    three fused kernels on every card with card 0 current; 9b with one
+    three fused kernels and the compiled fused step (a graph captured on
+    that card, against its eager step) on every card with card 0
+    current; 9b with one
     shard per card; 9c on the grid [[0, 1], [2, 3]] (the first four
     cards, or [[0, 1], [0, 1]] with two); 9d under NCCL, one process
     per card; then parallel.dryrun.dryrun_multichip(N) on the cards."""
@@ -1999,6 +2134,17 @@ def multicard_phase(n_cards: int):
             for d in reversed(cards):
                 fused_kernel_checks(f"card {d}, card 0 current", fe.statics,
                                     frontend.consts_to_device(host, d), xb)
+                # a graph per card, captured and replayed on that card
+                fd = frontend.FrontEnd(FS, CENTER, block_slots=BLOCK_SLOTS,
+                                       device=d)
+                xd = xb.to(d)
+                want = [None if o is None else o.clone()
+                        for o in fd.fused_step(xd)]
+                step = fd.compiled_step("fused")
+                check_replay(f"card {d}", step(xd), want)
+                assert all(o is None or o.device == d for o in step.outputs)
+                print(f"card {d}, card 0 current: the compiled fused step "
+                      f"replays there, bit for bit the eager step")
     with timed("phase 9m-b, one shard per card"):
         planes, sharded = sharded_phase(devices=cards)
     with timed("phase 9m-c, a grid over the cards"):
@@ -2078,6 +2224,8 @@ def main(argv=None) -> int:
                 print(f"{name}: {rows[name]['ms']:.4f} ms per launch (CUDA "
                       f"graph replay), {t:.4f} ms device time (profiler, "
                       f"in the {chain} step)")
+    with timed("phase 3d, compiled steps"):
+        compiled_phase(fe, fe_le, xb)
     with timed("phase 4, main path"):
         launches = main_path(survey, N_BLOCKS)
     with timed("phase 5, flat path"):

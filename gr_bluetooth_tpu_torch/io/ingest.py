@@ -10,12 +10,13 @@ The port of gr_bluetooth_tpu/io/ingest.py.  The contract has three parts:
     block's tail (lookahead + filter history), so no sample crosses the
     link twice.
   * **pipelining**: on a CUDA device each chunk is staged in pinned host
-    memory and copied with non_blocking=True; each block's outputs are
-    packed into one int32 buffer, copied device->host into pinned memory
-    with one non_blocking copy, and an event is recorded after it.  Up to
-    DEPTH blocks are in flight past the one being assembled, and the host
-    waits on a block's event only when it assembles that block.  Nothing
-    on the step reads a value back to the host.
+    memory and copied with non_blocking=True into the compiled step's
+    static chunk buffer; the step is one CUDA graph replay; its outputs,
+    packed into one int32 buffer, are copied device->host into pinned
+    memory with one non_blocking copy, and an event is recorded after
+    it.  Up to DEPTH blocks are in flight past the one being assembled,
+    and the host waits on a block's event only when it assembles that
+    block.  Nothing on the step reads a value back to the host.
 
 Clock correctness under overruns: a live radio cannot backpressure the
 air, so when the drop-oldest ring (io/sources.LiveSource) sheds samples
@@ -113,38 +114,63 @@ class _Slip:
     samples: int
 
 
+class _Slot:
+    """One block's host buffers in the ring: its wire chunk on the way in
+    and its packed outputs on the way out (pinned on a card, the packed
+    buffer sized at its first use), and the event recorded after the
+    block's device-to-host copy."""
+
+    def __init__(self, chunk_shape, dtype, pin: bool):
+        self.pin = pin
+        self.chunk = torch.empty(chunk_shape, dtype=dtype, pin_memory=pin)
+        self.out = None
+        self.event = torch.cuda.Event() if pin else None
+
+    def wait(self):
+        """Block until this slot's last block has left the device."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
 class PipelinedIngest:
     """Streaming loop over a FrontEnd: wire chunks in, BlockResults out.
 
     Chunks are interleaved (step_samples, 2) arrays of the wire dtype
     ((step_samples,) bytes for i4).  Conversion and the overlap carry run
     on the device, so per block the host link moves only the new wire
-    bytes in and one packed int32 buffer out."""
+    bytes in and one packed int32 buffer out.
+
+    The step (wire decode, carry, the front end's step, the packing) is
+    one compiled step (utils/graph.py) on the front end's StepCache,
+    built at the first run, as the JAX package jits _pipelined_step and
+    _pack: on a card one graph replay per block.  Its static inputs are
+    the carry, which the step's last operation overwrites with the next
+    carry, and the chunk, into which each chunk's copy lands; its static
+    output is the packed int32 vector, copied into a ring of DEPTH + 2
+    preallocated host buffers straight after the replay, on the same
+    stream.  A ring slot is reused only after its event has synchronized.
+    The carry is this ingest's state, so it runs one stream at a time."""
 
     def __init__(self, fe, wire: str = "f32"):
         if wire not in WIRES:
             raise ValueError(f"unknown wire format {wire!r}")
         self.fe = fe
         self.wire = wire
-        self._zeros = np.zeros((2, fe.overlap_samples), np.float32)
-        self._pin = fe.device.type == "cuda"
-
-    def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor; on a card through a pinned staging
-        buffer and a non_blocking copy (the caching host allocator keeps
-        the buffer until the copy has run)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if not self._pin:
-            return t.to(self.fe.device)
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t)
-        return h.to(self.fe.device, non_blocking=True)
+        self.chunk_shape = (fe.step_samples,) if wire == "i4" else \
+            (fe.step_samples, 2)
+        self.chunk_dtype = torch.from_numpy(np.zeros(0, WIRES[wire][0])).dtype
+        self._step = None               # the CompiledStep, at first run
+        self._specs = None              # the packed outputs' layout
+        self._ring: list[_Slot] = []
+        self._next = 0
+        self._running = False
 
     def step(self, carry, new):
         """(device carry, device wire chunk) -> (next carry, the step's
         outputs), as the JAX package's _pipelined_step: the fused chain
         (FrontEnd.fused_step) for a polyphase bank, the conv-bank step
-        (FrontEnd.device_step) for the odd rates' ChannelBank."""
+        (FrontEnd.device_step) for the odd rates' ChannelBank.  The eager
+        body of the compiled step."""
         xb = torch.cat([carry, wire_decode(new, self.wire)], 1)
         fe = self.fe
         outs = fe.fused_step(xb) if fe.is_pfb else fe.device_step(xb)
@@ -165,6 +191,59 @@ class PipelinedIngest:
             parts.append(oi.reshape(-1))
         return torch.cat(parts), specs
 
+    def _graph_fn(self, carry, new):
+        """The compiled step's body: step and _pack; its last operation
+        writes the next carry into the static carry, after the cat has
+        read it."""
+        nxt, outs = self.step(carry, new)
+        packed, self._specs = self._pack(outs)
+        carry.copy_(nxt)
+        return packed
+
+    def _build(self, graph=None):
+        """The compiled step, from zero inputs (`graph` as StepCache.build
+        takes it: a graph on a CUDA device by default)."""
+        fe = self.fe
+        return fe.graphs.build(self._graph_fn, [
+            torch.zeros((2, fe.overlap_samples), dtype=torch.float32,
+                        device=fe.device),
+            torch.zeros(self.chunk_shape, dtype=self.chunk_dtype,
+                        device=fe.device)], graph)
+
+    def _set_carry(self, host=None):
+        """The static carry from host planes (2, overlap), or zeros (a
+        stream's start without an initial carry, and a slip)."""
+        carry = self._step.inputs[0]
+        with self._step.on_stream():
+            if host is None:
+                carry.zero_()
+            else:
+                carry.copy_(torch.from_numpy(
+                    np.ascontiguousarray(host, np.float32)))
+
+    def _h2d(self, a, slot: _Slot):
+        """Host wire chunk -> the step's static chunk, through the slot's
+        (pinned) buffer and a non_blocking copy on the step's stream."""
+        a = np.asarray(a)
+        if a.shape != self.chunk_shape:
+            raise ValueError(f"wire chunk must be {self.chunk_shape}, got "
+                             f"{a.shape}")
+        np.copyto(slot.chunk.numpy(), a)
+        with self._step.on_stream():
+            self._step.inputs[1].copy_(slot.chunk, non_blocking=True)
+
+    def _launch(self, slot: _Slot):
+        """Replay the step and start the copy of its packed outputs into
+        the slot, on the step's stream."""
+        with self._step.on_stream():
+            packed = self._step.replay()[0]
+            if slot.out is None:
+                slot.out = torch.empty(packed.shape, dtype=torch.int32,
+                                       pin_memory=slot.pin)
+            slot.out.copy_(packed, non_blocking=True)
+            if slot.event is not None:
+                slot.event.record()
+
     def run(self, chunks, start_clkn: int = 0, initial_carry=None,
             bus=None):
         """Iterate BlockResults over a chunk stream.
@@ -172,56 +251,64 @@ class PipelinedIngest:
         `chunks` yields wire arrays, or _Slip markers (from live_chunks)
         signalling dropped air time: the clock advances by the slipped
         slots, the device carry restarts from zeros, and `bus` (if
-        given) gets a clock_slipped event."""
+        given) gets a clock_slipped event.  One run at a time: iterating
+        a second one while the first is open raises."""
+        if self._running:
+            raise RuntimeError("this ingest's carry holds one stream at a "
+                               "time; finish or close the open one first")
+        self._running = True
+        try:
+            yield from self._run(chunks, start_clkn, initial_carry, bus)
+        finally:
+            self._running = False
+
+    def _run(self, chunks, start_clkn, initial_carry, bus):
         from ..utils.metrics import metrics
 
         fe = self.fe
-        carry = self._h2d(initial_carry if initial_carry is not None
-                          else self._zeros)
+        if self._step is None:
+            self._step = self._build()
+            pin = fe.device.type == "cuda"
+            self._ring = [_Slot(self.chunk_shape, self.chunk_dtype, pin)
+                          for _ in range(DEPTH + 2)]
+        self._set_carry(initial_carry)
         slot_base = start_clkn
-        pending: list = []              # [(host buf, event, specs, clkn)]
+        pending: list = []              # [(slot, clkn)]
         for item in chunks:
             if isinstance(item, _Slip):
                 # gap in the stream: air time advanced without samples;
                 # packets straddling the gap are unrecoverable anyway
                 slot_base += item.slots
-                carry = self._h2d(self._zeros)
+                self._set_carry()
                 metrics.count("clock_slipped_slots", item.slots)
                 if bus is not None:
                     bus.emit("clock_slipped", slots=item.slots,
                              samples=item.samples, clkn=slot_base)
                 continue
+            slot = self._ring[self._next % len(self._ring)]
+            self._next += 1
             with metrics.stage("h2d"):
-                d = self._h2d(item)
+                slot.wait()
+                self._h2d(item, slot)
             if len(pending) > DEPTH:
-                yield self._assemble(pending.pop(0))
+                yield self._assemble(*pending.pop(0))
             with metrics.stage("device_step"):
-                carry, outs = self.step(carry, d)
-                packed, specs = self._pack(outs)
-                if self._pin:
-                    host = torch.empty(packed.shape, dtype=torch.int32,
-                                       pin_memory=True)
-                    host.copy_(packed, non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record()
-                else:
-                    host, ev = packed, None
-            pending.append((host, ev, specs, slot_base))
+                self._launch(slot)
+            pending.append((slot, slot_base))
             slot_base += fe.block_slots
             metrics.count("blocks", 1)
             metrics.count("samples_in", fe.step_samples)
         while pending:
-            yield self._assemble(pending.pop(0))
+            yield self._assemble(*pending.pop(0))
 
-    def _assemble(self, pending):
+    def _assemble(self, slot: _Slot, slot_base: int):
         from ..utils.metrics import metrics
-        host, ev, specs, slot_base = pending
         with metrics.stage("assemble"):
-            if ev is not None:
-                ev.synchronize()
-            buf = host.numpy()
+            slot.wait()
+            # a copy: the slot is reused, and the result keeps its arrays
+            buf = slot.out.numpy().copy()
             outs, pos = [], 0
-            for spec in specs:
+            for spec in self._specs:
                 if spec is None:
                     outs.append(None)
                     continue

@@ -49,8 +49,15 @@ All steps end in the same packed tail (_packed_tail):
     LE (enable_le): the LE rows' dense bits, the LE detector, the dense
     squelch gate, first-k extraction, LE windows     [torch, ops/detect]
 
-Nothing on the step reads a value back to the host.  Hits within the
-first B slots are reported; the stream advances B slots.
+Nothing on the step reads a value back to the host, and its shapes are
+static, so on a CUDA device each step is captured once as a CUDA graph
+and replayed per block (utils/graph.py, the counterpart of the JAX
+package's jit): compiled_step(chain) for the flat (or conv-bank) and the
+fused chain, cached per front end as the JAX FrontEnd keeps _jit_step.
+process_block (hence stream_sync) replays the flat or conv-bank graph,
+stream() the ingest's graph (io/ingest.py); device_step and fused_step
+stay the eager bodies.  Hits within the first B slots are reported; the
+stream advances B slots.
 """
 from __future__ import annotations
 
@@ -66,6 +73,7 @@ from ..ops import (channelizer, demod, demod_kernel, detect, detect_kernel,
                    pfb, pfb_kernel, resample, snr)
 from ..ops.detect_kernel import ac_errors, popcount, u32_to_i32
 from ..utils.device import resolve_device
+from ..utils.graph import StepCache
 from ..utils.log import get_logger
 
 __all__ = ["FrontEnd", "Hit", "LeHit", "BlockResult"]
@@ -207,6 +215,7 @@ class FrontEnd:
                           le_white=white, le_aa_on=aa_on,
                           le_max_dist=max_dist, **detect.le_table_consts())
         self.consts = consts_to_device(consts, self.device)
+        self.graphs = StepCache(self.device)   # the compiled steps
         self._ingests: dict = {}        # wire -> PipelinedIngest
 
     # ------------------------------------------------------------ device
@@ -214,15 +223,7 @@ class FrontEnd:
     def to_planes(self, x) -> torch.Tensor:
         """Host or device samples -> (2, N) float32 planes on the device:
         complex (N,) arrays are split, planes pass through."""
-        if isinstance(x, torch.Tensor):
-            if x.is_complex():
-                x = torch.stack([x.real, x.imag])
-            return x.to(self.device, torch.float32)
-        x = np.asarray(x)
-        if np.iscomplexobj(x):
-            x = np.stack([x.real, x.imag])
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device)
+        return _planes(x).to(self.device)
 
     def device_step(self, x):
         """The flat chain (the conv-bank step at odd rates) on one block
@@ -230,27 +231,54 @@ class FrontEnd:
         planes, host or device).  Returns device tensors (snr_db, n_hits,
         hit_tab, windows, n_le, le_tab, le_windows), the JAX package's
         7-tuple; the LE three are None with LE off."""
-        step = _device_step if self.is_pfb else _conv_step
-        return step(self.to_planes(x), **self.consts, **self.statics)
+        return self._step_fn("flat")(self.to_planes(x), **self.consts,
+                                     **self.statics)
 
     def fused_step(self, x):
         """The fused chain on one block, same input and outputs as
         device_step (stream() runs it); polyphase banks only."""
-        if not self.is_pfb:
-            raise ValueError("the conv bank of odd rates has no fused "
-                             "chain; device_step is its step")
-        return _fused_step(self.to_planes(x), **self.consts, **self.statics)
+        return self._step_fn("fused")(self.to_planes(x), **self.consts,
+                                      **self.statics)
+
+    def _step_fn(self, chain: str):
+        if chain == "fused":
+            if not self.is_pfb:
+                raise ValueError("the conv bank of odd rates has no fused "
+                                 "chain; device_step is its step")
+            return _fused_step
+        if chain != "flat":
+            raise ValueError(f"unknown chain {chain!r}")
+        return _device_step if self.is_pfb else _conv_step
+
+    def compiled_step(self, chain: str = "flat", n_samples: int | None =
+                      None):
+        """The compiled form of one chain's step (a utils.graph
+        CompiledStep, built at first use and kept): "flat" is
+        device_step's (the conv bank's at odd rates), "fused" fused_step's.
+        Call it on (2, n_samples) float32 planes (block_samples by
+        default) on any device; it returns the step's 7-tuple as its own
+        static tensors, rewritten by the next call of any compiled step of
+        this front end.  On a CUDA device each call is one graph replay."""
+        fn = self._step_fn(chain)
+        n = self.block_samples if n_samples is None else n_samples
+
+        def step(x):
+            return fn(x, **self.consts, **self.statics)
+
+        return self.graphs.get((fn, chain), step, [((2, n), torch.float32)])
 
     # ------------------------------------------------------------ host
 
     def process_block(self, x, slot_base: int) -> BlockResult:
         from ..utils.metrics import metrics
         with metrics.stage("device_step"):
-            outs = self.device_step(x)
+            x = _planes(x)
+            outs = self.compiled_step("flat", x.shape[1])(x)
         with metrics.stage("assemble"):
+            # copies: the step's outputs are rewritten by its next call
             res = self.assemble_block(
-                *(None if o is None else o.cpu().numpy() for o in outs),
-                slot_base=slot_base)
+                *(None if o is None else o.to("cpu", copy=True).numpy()
+                  for o in outs), slot_base=slot_base)
         metrics.count("blocks", 1)
         metrics.count("samples_in", self.step_samples)
         metrics.count("classic_hits", len(res.hits))
@@ -413,6 +441,19 @@ class FrontEnd:
             tail = np.zeros((2, self.block_samples), dtype=np.float32)
             tail[:, :n - pos] = samples[:, pos:]
             yield self.process_block(tail, slot_base)
+
+
+def _planes(x) -> torch.Tensor:
+    """Samples -> (2, N) float32 planes on their own device (the CPU for
+    host arrays): complex (N,) arrays are split, planes pass through."""
+    if isinstance(x, torch.Tensor):
+        if x.is_complex():
+            x = torch.stack([x.real, x.imag])
+        return x.to(torch.float32)
+    x = np.asarray(x)
+    if np.iscomplexobj(x):
+        x = np.stack([x.real, x.imag])
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
 
 def consts_to_device(consts: dict, device) -> dict:

@@ -178,19 +178,17 @@ def assemble_slot_snr(oe, pe, *, S: int, slot_ch: int, kappa: float,
         raise ValueError(f"tile {tile} does not divide slot_ch {slot_ch}")
     Cp, G = oe.shape
     C = Cp - 1
-    dev = oe.device
-    slot_of_tile = (torch.arange(G, device=dev) * tile) // slot_ch
-    on = torch.zeros((S + 1, C), dtype=torch.float32, device=dev)
-    on.index_add_(0, slot_of_tile.clamp(max=S), oe[:C].T)
-    on = on[:S] / slot_ch
+    # segment sums as reshaped sums, in a fixed order: the same bits at
+    # every run (an index_add_ on a card adds in no fixed order)
+    per_tile = slot_ch // tile
+    oe = torch.nn.functional.pad(oe[:C], (0, max(0, S * per_tile - G)))
+    on = oe[:, : S * per_tile].reshape(C, S, per_tile).sum(-1).T / slot_ch
 
     n_k = pe.shape[1]
     per_slot = slot_ch // PROBE_STRIDE
     Sp = min(S, n_k // per_slot)
-    group = torch.arange(n_k, device=dev) // per_slot
-    off = torch.zeros((Sp + 1, C), dtype=torch.float32, device=dev)
-    off.index_add_(0, group.clamp(max=Sp), pe[1:C + 1].T)
-    off = off[:Sp] / per_slot
+    off = pe[1:C + 1, : Sp * per_slot].reshape(C, Sp, per_slot).sum(-1).T
+    off = off / per_slot
     if Sp < S:
         off = torch.cat([off, off[-1:].expand(S - Sp, C)], 0)
     off = off * kappa

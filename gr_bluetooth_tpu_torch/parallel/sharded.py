@@ -52,6 +52,7 @@ import torch
 from ..models.frontend import (BlockResult, FrontEnd, _conv_step,
                                _fused_step, consts_to_device)
 from ..utils.device import resolve_device
+from ..utils.graph import StepCache
 
 __all__ = ["ShardedFrontEnd", "measure_scaling_efficiency"]
 
@@ -95,7 +96,13 @@ def _on(stream):
 class Column:
     """Time shards of one front end's step: shard i holds a block buffer
     (2, step + overlap) on devices[i], has its own stream there and
-    reads consts[i] (the step's constants on its device)."""
+    reads consts[i] (the step's constants on its device).
+
+    Each shard replays its own compiled step (utils/graph.py), captured
+    on that shard's stream and device with a memory pool of its own (the
+    shards' graphs run concurrently), as the JAX package jits the
+    sharded step; the halo copies and any exchange between processes
+    stay outside the graphs."""
 
     def __init__(self, fe: FrontEnd, devices, consts):
         self.devices = devices
@@ -106,6 +113,19 @@ class Column:
         self.overlap = fe.overlap_samples
         self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
                         else None for d in devices]
+        self.graphs = [StepCache(d, s)
+                       for d, s in zip(devices, self.streams)]
+
+    def compiled(self, i: int):
+        """Shard i's compiled step on a (2, step + overlap) block."""
+        c = self.consts[i]
+
+        def step(xb):
+            return self.step_fn(xb, **c, **self.statics)
+
+        return self.graphs[i].get(
+            self.step_fn, step,
+            [((2, self.step + self.overlap), torch.float32)])
 
     def place(self, x):
         """(2, n * step) host planes -> per-shard blocks with the chunks
@@ -160,12 +180,14 @@ class Column:
             blocks[i][:, self.step:].copy_(halo, non_blocking=True)
 
     def launch(self, blocks):
-        """Every shard's step on its stream; returns the outputs stacked
-        per shard on devices[0], on the caller's stream there."""
+        """Every shard's compiled step on its stream (the block copied
+        into the step's static input there, then one replay); returns the
+        outputs stacked per shard on devices[0], on the caller's stream
+        there."""
         outs = []
-        for xb, s, c in zip(blocks, self.streams, self.consts):
+        for i, (xb, s) in enumerate(zip(blocks, self.streams)):
             with _on(s):
-                outs.append(self.step_fn(xb, **c, **self.statics))
+                outs.append(self.compiled(i)(xb))
         return stack_outputs(outs, self.devices, self.streams)
 
 
@@ -184,11 +206,16 @@ def stack_outputs(outs, devices, streams):
                 moved = [t.to(dev0, non_blocking=True) for t in moved]
         if s is not None and dev == dev0:
             cur.wait_stream(s)
-            for t in moved:
-                t.record_stream(cur)
         for j, t in enumerate(moved):
             cols[j].append(t)
-    return tuple(torch.stack(c, 0) for c in cols)
+    stacked = tuple(torch.stack(c, 0) for c in cols)
+    # the outputs are the shards' static tensors: a shard's next replay
+    # waits for the stack that read them (the copy to another card ran
+    # on the shard's own stream)
+    for dev, s in zip(devices, streams):
+        if s is not None and dev == dev0:
+            s.wait_stream(cur)
+    return stacked
 
 
 def to_host(out) -> list[np.ndarray]:
@@ -421,8 +448,8 @@ def measure_scaling_efficiency(fe: FrontEnd, devices=None,
         statistics, and `noise_floor` flags the jitter-dominated
         regime);
       * **speedup_vs_scan_1dev**: a loop over the superblock's blocks on
-        the first device, one after another on its current stream (the
-        stand-in for the JAX package's one-dispatch lax.scan).  With
+        the first device, one after another through shard 0's compiled
+        step (the stand-in for the JAX package's one-dispatch lax.scan).  With
         shards on several cards it approaches n_devices x; with all
         shards on one card it measures what concurrent streams buy.
     """
@@ -452,11 +479,14 @@ def measure_scaling_efficiency(fe: FrontEnd, devices=None,
 
     def run_scan_1dev():
         t0 = time.perf_counter()
+        g = col.compiled(0)
         for s in range(n_superblocks):
             xs = torch.from_numpy(np.ascontiguousarray(
                 x[:, s * sb: (s + 1) * sb + ov])).to(dev0)
-            outs = [col.step_fn(xs[:, i * step: i * step + bs],
-                                **col.consts[0], **col.statics)
+            # shard 0's graph, once per block; its outputs cloned, as the
+            # next replay rewrites them
+            outs = [[None if o is None else o.clone()
+                     for o in g(xs[:, i * step: i * step + bs])]
                     for i in range(sfe.n_dev)]
             sfe._assemble(stack_outputs(outs, [dev0] * len(outs),
                                         [None] * len(outs)),

@@ -6,7 +6,8 @@
   * wire_decode is bit-identical to wire_decode_np for every format;
   * no file of the port (its CLI in apps/, the I/O, resampler,
     conv-bank, parallel-decode and blocks modules, the Kismet survey in
-    kismet/ and the sharded front ends in parallel/ among them), and not
+    kismet/, the sharded front ends in parallel/, the compiled steps in
+    utils/graph.py and graft_entry.py among them), and not
     chip_smoke.py, imports jax or gr_bluetooth_tpu;
   * entry points with no device on a machine without a card raise, odd
     and off-grid rates build their own front ends (an odd rate's has no
@@ -29,7 +30,7 @@ from gr_bluetooth_tpu.models import frontend as jfrontend
 from gr_bluetooth_tpu.ops import pfb as jpfb
 from gr_bluetooth_tpu.ops import snr as jsnr
 from gr_bluetooth_tpu.ops import synth as jsynth
-from gr_bluetooth_tpu_torch import convert
+from gr_bluetooth_tpu_torch import convert, graft_entry
 from gr_bluetooth_tpu_torch.core import access_code
 from gr_bluetooth_tpu_torch.io import ingest, native
 from gr_bluetooth_tpu_torch.kismet import KismetSource
@@ -148,7 +149,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "ops/channelizer.py", "ops/snr.py", "kismet/__main__.py",
             "kismet/source.py", "kismet/server.py", "parallel/sharded.py",
             "parallel/sharded2d.py", "parallel/dryrun.py",
-            "parallel/worker.py"} <= scanned
+            "parallel/worker.py", "utils/graph.py",
+            "graft_entry.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -201,6 +203,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     fe = frontend.FrontEnd(4e6, 2441e6, block_slots=8, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedFrontEnd(fe)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.entry()
 
 
 @pytest.mark.parametrize("kw", [dict(sample_rate=5e6),

@@ -759,3 +759,118 @@ def test_shards_on_two_cards_match_stream(cuda):
     c0, c1 = _two_cards(cuda)
     chip_smoke.sharded_phase(8e6, 2426e6, block_slots=8, n_blocks=8,
                              devices=[c0, c1, c0, c1])
+
+
+# ------------------------------------------------------------ compiled steps
+
+def _clone(outs):
+    return [None if o is None else o.clone() for o in outs]
+
+
+@pytest.mark.parametrize("chain,fs,center,le", [
+    ("fused", 8e6, 2426e6, False), ("fused", 8e6, 2426e6, True),
+    ("flat", 8e6, 2426e6, True), ("flat", 81e6, 2441e6, False)])
+def test_replay_equals_eager_exactly(cuda, chain, fs, center, le):
+    """Each chain's compiled step (one graph replay) against its eager
+    step on a planted block, twice: every output bit for bit (the fused
+    chain with LE off and on, the flat chain, the 81 Msps conv bank)."""
+    fe = FrontEnd(fs, center, block_slots=16, enable_le=le)
+    x, _ = chip_smoke.plant_capture(fe, 1, seed=4)
+    xb = fe.to_planes(x[: fe.block_samples])
+    eager = fe.fused_step if chain == "fused" else fe.device_step
+    want = _clone(eager(xb))
+    step = fe.compiled_step(chain)
+    assert step.graph is not None and fe.compiled_step(chain) is step
+    for _ in range(2):
+        chip_smoke.check_replay(chain, step(xb), want)
+    assert int(want[1]) >= 5
+
+
+def test_graph_captured_on_a_non_default_stream(cuda):
+    """A CompiledStep captured on a stream the caller gives replays
+    there, called from the default stream and from a third stream: the
+    outputs equal the eager step's each time."""
+    from gr_bluetooth_tpu_torch.utils.graph import CompiledStep
+    fe = FrontEnd(8e6, 2441e6, block_slots=8)
+    x, _ = chip_smoke.plant_capture(fe, 1, seed=5)
+    xb = fe.to_planes(x[: fe.block_samples])
+    want = _clone(fe.fused_step(xb))
+    s = torch.cuda.Stream()
+    step = CompiledStep(
+        lambda v: frontend._fused_step(v, **fe.consts, **fe.statics), [xb],
+        stream=s)
+    assert step.stream == s and step.stream != torch.cuda.current_stream()
+    chip_smoke.check_replay("default stream", step(xb), want)
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        got = _clone(step(xb))
+    torch.cuda.current_stream().wait_stream(other)
+    chip_smoke.check_replay("third stream", got, want)
+
+
+def test_entry_on_the_card(cuda):
+    """graft_entry.entry() with no device runs on the card: its step is a
+    graph, and on its zeros and on a planted block it equals the eager
+    flat step of the same front end."""
+    from gr_bluetooth_tpu_torch import graft_entry
+    step, (x,) = graft_entry.entry()
+    assert x.is_cuda and x.shape == (2, step.inputs[0].shape[1])
+    assert step.graph is not None
+    fe = FrontEnd(16e6, 2441e6, block_slots=16)
+    chip_smoke.check_replay("zeros", step(x), _clone(fe.device_step(x)))
+    xp, _ = chip_smoke.plant_capture(fe, 1, seed=7)
+    xb = fe.to_planes(xp[: fe.block_samples])
+    want = _clone(fe.device_step(xb))
+    chip_smoke.check_replay("planted", step(xb), want)
+    assert int(want[1]) >= 5
+
+
+def test_launches_count_replays(cuda):
+    """A replay calls no wrapper: the capture (its warm-up included)
+    counts nothing, records each kernel's launches per replay, and every
+    replay adds them; stream() counts one replay per block."""
+    fe = FrontEnd(8e6, 2441e6, block_slots=8)
+    xb = torch.zeros((2, fe.block_samples), device=cuda)
+    fused = ("pfb_snr", "demod_pack", "detect_words")
+    flat = ("deinterleave", "pfb_channelize", "detect_words")
+    for chain, names in (("fused", fused), ("flat", flat)):
+        counts = _launches()
+        step = fe.compiled_step(chain)
+        assert _launches() == counts
+        assert step.launches_per_replay == {f"{k}.launches": 1
+                                            for k in names}
+        for _ in range(3):
+            step(xb)
+        assert _launches() == {k: c + 3 * (k in names)
+                               for k, c in counts.items()}
+    x, _ = chip_smoke.plant_capture(fe, 3, seed=2)
+    counts = _launches()
+    n = len(list(fe.stream(x)))
+    assert n == 3 and _launches() == {k: c + 3 * (k in fused)
+                                      for k, c in counts.items()}
+
+
+def test_compiled_ingest_equals_eager_ingest_on_card(cuda):
+    """The compiled ingest (one replay per block, the pinned ring
+    wrapping) against the eager ingest on the same int16 chunks with a
+    slip among them: the same blocks, bit for bit."""
+    fe = FrontEnd(8e6, 2426e6, block_slots=8, enable_le=True)
+    x, _, _ = chip_smoke.plant_le_capture(fe, ingest.DEPTH + 4, seed=9)
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    carry, chunks = ingest.wire_chunks(0.5 * planes, fe, "i16")
+    chunks = list(chunks)
+    chunks.insert(3, ingest._Slip(slots=5, samples=5 * fe.samples_per_slot))
+    runs = []
+    for cls in (ingest.PipelinedIngest, chip_smoke.EagerIngest):
+        runs.append(list(cls(fe, "i16").run(iter(chunks), 11,
+                                            initial_carry=carry)))
+    a, b = runs
+    assert len(a) == len(b) == len(chunks) - 1 >= ingest.DEPTH + 3
+    for ra, rb in zip(a, b):
+        assert ra.slot_base == rb.slot_base and ra.hits == rb.hits
+        assert ra.le_hits == rb.le_hits
+        assert np.array_equal(ra.snr_db.view(np.int32),
+                              rb.snr_db.view(np.int32))
+        assert np.array_equal(ra.windows, rb.windows)
+        assert np.array_equal(ra.le_windows, rb.le_windows)
+    assert sum(len(r.hits) for r in a) >= 10

@@ -408,19 +408,27 @@ def test_overrun_advances_clock_and_sniffer_survives():
 
 
 def test_run_sends_nothing_to_the_device_for_a_slip(monkeypatch):
-    """A _Slip moves the clock and restarts the carry from zeros; _h2d
-    sees only chunks and carries, never the marker."""
+    """A _Slip moves the clock and restarts the compiled step's static
+    carry from zeros on the device; _h2d sees only chunks, never the
+    marker, and the carry is set at the start (zeros: no initial carry)
+    and at the slip."""
     fe = FrontEnd(4e6, 2441e6, block_slots=8, device="cpu")
     pipe = ingest.PipelinedIngest(fe, "i16")
     seen = []
-    h2d = pipe._h2d
+    h2d, set_carry = pipe._h2d, pipe._set_carry
 
-    def spy(a):
+    def spy(a, slot):
         assert not isinstance(a, ingest._Slip)
         seen.append(np.asarray(a).shape)
-        return h2d(a)
+        return h2d(a, slot)
+
+    def spy_carry(host=None):
+        seen.append(("carry", host))
+        set_carry(host)
+        assert not pipe._step.inputs[0].any()
 
     monkeypatch.setattr(pipe, "_h2d", spy)
+    monkeypatch.setattr(pipe, "_set_carry", spy_carry)
     chunk = np.zeros((fe.step_samples, 2), np.int16)
     bus = EventBus()
     res = list(pipe.run(iter([chunk, ingest._Slip(3, 3 * 2500), chunk]),
@@ -429,6 +437,6 @@ def test_run_sends_nothing_to_the_device_for_a_slip(monkeypatch):
     assert bus.events("clock_slipped") == [
         {"kind": "clock_slipped", "slots": 3, "samples": 7500,
          "clkn": 10 + 8 + 3}]
-    # initial carry, chunk, the slip's zero carry, chunk
-    assert seen == [(2, fe.overlap_samples), chunk.shape,
-                    (2, fe.overlap_samples), chunk.shape]
+    # the zero initial carry, chunk, the slip's zero carry, chunk
+    assert seen == [("carry", None), chunk.shape, ("carry", None),
+                    chunk.shape]
