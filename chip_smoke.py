@@ -131,7 +131,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       cuda:0, device_put_local, the halo through host memory), each
       with a time limit: process 0's hits equal 9b's.  NCCL refuses two
       ranks on one card, so its path is not run here.
-   Each prints its wall time.
+   Each prints its wall time;
+10. the bench: `python -m gr_bluetooth_tpu_torch.bench` (no --device) as
+   a subprocess, its whole output read in this process and its last
+   line parsed (check_bench): LAP parity held with value > 0, the 16
+   and 8 MHz int8 operating points decode 94 of 94 and 44 of 44 planted
+   in-band packets, the hostile max_rate and mixed loads at least 249
+   and 101 in every decode mode they run (scalar, batched, the second
+   batched run and the pool), and roofline.modeled_ms equals the sum of
+   phase 3's bounds of pfb_snr, demod_pack and detect_words (the same
+   byte and operation counts, gr_bluetooth_tpu_torch/bench.py); prints
+   the other points' counts, the top ops and the bench's line, and its
+   wall time.
 
 Phase 3 also checks detect_words with emit_err (its 7 error-count planes
 exact against the plain version) and times it, and phase 3c runs the
@@ -183,6 +194,12 @@ import numpy as np
 import torch
 
 from gr_bluetooth_tpu_torch import testing
+from gr_bluetooth_tpu_torch.bench import (INT32_OPS, bound, channelize_ops,
+                                          deinterleave_cost, demod_pack_cost,
+                                          detect_instr_per_word,
+                                          detect_words_cost, mode_captures,
+                                          pfb_channelize_cost, pfb_snr_cost,
+                                          piconet_sims)
 from gr_bluetooth_tpu_torch.constants import (LE_ADV_AA, SYMBOLS_PER_SLOT,
                                               TYPE_NAMES)
 from gr_bluetooth_tpu_torch.core import whitening
@@ -204,11 +221,6 @@ LAPS = (0x24D952, 0x9E8B33, 0x123456, 0xABCDEF, 0x5A17EC, 0x000F0F,
         0xC0FFEE)
 # LE advertising channels 37, 38, 39 on the BR channel grid
 LE_ADV_CHANNELS = {0: 37, 24: 38, 78: 39}
-HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
-FP32_OPS = 67e12           # H100 SXM non-tensor float32, operations/s
-# int32 add/shift/logical: 64 lanes per SM against float32's 128, one
-# operation per lane and clock where the float32 rate counts an FMA as 2
-INT32_OPS = FP32_OPS * 64 / 128 / 2
 # the fused chain's kernels (stream()) and the flat chain's (stream_sync())
 FUSED = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
          detect_kernel.detect_words)
@@ -226,12 +238,6 @@ REPLACES = {
     "pfb_channelize": "gr_bluetooth_tpu/ops/pfb_kernel.py:193",
     "deinterleave": "gr_bluetooth_tpu/ops/pfb.py:126",
 }
-# the modes' captures: bench.py's sniffer configuration (bench.py:338-342,
-# 438-442), three piconets (LAP, UAP, CLK1-27 at slot 0), 256 slots,
-# seed 13; the first piconet is the e2e capture's
-PICONETS = ((0x24D952, 0x47, 0x12780), (0x1A2B3C, 0x99, 0x00450),
-            (0x654321, 0x13, 0x71111))
-MODE_SLOTS, MODE_SEED = 256, 13
 # decoded packets each capture must give at 80 Msps, of 250 and 101
 # planted (the JAX package's counts on the same captures, BENCH_r05.json)
 MIN_DECODED = {"max_rate": 249, "mixed": 101}
@@ -526,90 +532,6 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return ms
 
 
-def bound(n_bytes: float, n_ops: float, ops_rate: float = FP32_OPS):
-    tb, to = n_bytes / HBM_BPS * 1e3, n_ops / ops_rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def channelize_ops(C: int, M: int, Q: int) -> float:
-    """Float32 operations per frame that the polyphase DFT channelizer's
-    function needs: the branch FIRs (M complex outputs of Q real taps,
-    4MQ) and the M-point complex DFT, as an FFT at the conventional
-    5 M log2 M where that is fewer than the direct 8CM over the C
-    covered bins.  The (-1)^{cn} rotator is a sign flip.  The kernels
-    compute the DFT directly, as the TPU's MXU does; the bound does
-    not."""
-    return 4 * M * Q + min(8 * C * M, 5 * M * math.log2(M))
-
-
-def _csa_ops(n_planes: int) -> int:
-    """Two-input operations of the carry-save popcount of n one-bit
-    planes (detect_pallas._csa_reduce): 5 per full adder, 2 per half."""
-    levels, ops, w = [n_planes], 0, 0
-    while w < len(levels) and levels[w]:
-        levels.append(0)
-        while levels[w] >= 3:
-            levels[w] -= 2
-            levels[w + 1] += 1
-            ops += 5
-        if levels[w] == 2:
-            levels[w] -= 1
-            levels[w + 1] += 1
-            ops += 2
-        w += 1
-    return ops
-
-
-def _csa_instr(n_planes: int) -> int:
-    """LOP3 instructions of the carry-save popcount of n one-bit planes
-    as csrc/detect_words.cu:count takes it: two per full adder (XOR3 and
-    majority), two per half adder (XOR and AND)."""
-    n, instr = n_planes, 0
-    while n > 1:
-        full = (n - 1) // 2 if n >= 3 else 0
-        half = int(n - 2 * full == 2)
-        instr += 2 * (full + half)
-        n = full + half                   # carries: the next weight
-    return instr
-
-
-def detect_instr_per_word(max_err: int, symbols=range(68)) -> dict:
-    """This card's instructions (SHF for a funnel shift, LOP3 for any
-    function of up to three inputs) that the bit-sliced detector needs
-    for one 32-offset word, by part: "shf" the 65 views v_j with j % 32
-    != 0; "pred" the error planes of `symbols` (all 68 by default): row
-    j's plane v_j ^ pred_j is an XOR of popcount(row) + 1 terms, the
-    complement C68[j] free inside a LOP3, a LAP symbol's own plane zero,
-    and rows with equal masks share their LAP chain, so a group of g
-    rows with p-term masks costs min(g ceil(p / 2), ceil((p - 1) / 2) +
-    g); "csa" the popcount of the error planes; "gate" the preamble's and
-    Barker's popcounts (6 and 8) and 6 for pre + bark <= 2; "le" err <=
-    max_err over the 7 counter planes (2 per set bit of max_err, 1 per
-    clear one) and the hit AND.  The tail mask (one word per row) is not
-    counted.  "total" is their sum over all 68 symbols."""
-    a68, c68 = detect_kernel.A68, detect_kernel.C68V
-    rows = [int(sum(int(b) << k for k, b in enumerate(a68[j])))
-            for j in range(68)]
-    planes = [j for j in range(68)
-              if not (38 <= j < 62 and not int(c68[j]) & 1 and
-                      rows[j] == 1 << (j - 38))]
-    groups: dict = {}
-    for j in planes:
-        if j in symbols:
-            groups.setdefault(rows[j], []).append(j)
-    pred = 0
-    for row, js in groups.items():
-        p, g = bin(row).count("1"), len(js)
-        pred += min(g * -(-p // 2), -(-(p - 1) // 2) + g)
-    k = min(max(max_err, 0), 127)
-    parts = dict(shf=sum(1 for j in range(68) if j % 32), pred=pred,
-                 csa=_csa_instr(len(planes)),
-                 gate=_csa_instr(5) + _csa_instr(7) + 6,
-                 le=sum(2 if (k >> b) & 1 else 1 for b in range(7)) + 1)
-    parts["total"] = sum(parts.values())
-    return parts
-
-
 # demod_pack's arithmetic, in instructions per lane, as
 # csrc/demod_pack.cu issues it: a discriminator frame (4 shared loads, 6
 # products, atan2_poly with its two IEEE divisions (fast path, range test),
@@ -635,6 +557,24 @@ def demod_instr(C: int, n_groups: int, n_k: int, T: int) -> float:
                  2 * 4 * DEMOD_BUTTERFLY)
     taps = -(-T // 32) * 32
     return C * (n_groups * per_group + n_k * taps * DEMOD_TAP / 32)
+
+
+def _csa_ops(n_planes: int) -> int:
+    """Two-input operations of the carry-save popcount of n one-bit
+    planes (detect_pallas._csa_reduce): 5 per full adder, 2 per half."""
+    levels, ops, w = [n_planes], 0, 0
+    while w < len(levels) and levels[w]:
+        levels.append(0)
+        while levels[w] >= 3:
+            levels[w] -= 2
+            levels[w + 1] += 1
+            ops += 5
+        if levels[w] == 2:
+            levels[w] -= 1
+            levels[w + 1] += 1
+            ops += 2
+        w += 1
+    return ops
 
 
 def detect_ops_per_word(max_err: int) -> int:
@@ -678,7 +618,6 @@ def kernel_checks(fe, xb):
     print(f"pfb_snr: y {tuple(yr.shape)} max |kernel - plain| = {err_y:.3e}"
           f" (tolerance 2e-5)")
     assert err_y <= 2e-5, err_y
-    G = n_frames // pfb_kernel.TF
     w = conv_bank_weights(*bank[:4])
     lib = lambda: torch.nn.functional.conv1d(xb[None], w, stride=D)  # noqa
     ly = lib()[0]
@@ -692,9 +631,7 @@ def kernel_checks(fe, xb):
     print(f"channelizers: {channelize_ops(C, M, Q):.6g} float32 operations "
           f"per frame (FIR 4MQ = {4 * M * Q}, {M}-point FFT 5 M log2 M = "
           f"{5 * M * math.log2(M):.6g}; the direct DFT's 8CM = {8 * C * M})")
-    flops = n_frames * (channelize_ops(C, M, Q) + C * 4)
-    nbytes = xb.numel() * 4 + 2 * C * n_frames * 4 + C * G * 4
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(*pfb_snr_cost(xb.numel(), C, M, Q, n_frames))
     rows["pfb_snr"] = dict(
         max_abs_err=err_y,
         ms=graph_ms(lambda: pfb_kernel.pfb_snr(xb, *bank, n_frames)),
@@ -726,14 +663,9 @@ def kernel_checks(fe, xb):
           f"{err_snr:.3e} dB (tolerance 1e-3)")
     assert err_snr <= 1e-3, err_snr
     n_groups = demod_kernel.n_groups(s["n_sym"], n_k)
-    F_read = min(n_frames, n_groups * demod_kernel.GROUP_FRAMES + 2)
     T = c["probe_re"].shape[0]
-    # per row: discriminator ~32 ops per frame (products 6, atan2_poly
-    # ~25, gain 1); timing 16 hypotheses x (lerp 3, abs, sum) = 80 and
-    # slicer + pack ~4 per symbol; probe 8 per tap per grid point
-    ops = C * (F_read * 32 + n_groups * demod_kernel.GROUP * 84 + n_k * T * 8)
-    nbytes = 2 * C * F_read * 4 + words.numel() * 4 + pe.numel() * 4
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(*demod_pack_cost(C, n_frames, n_groups, n_k, T,
+                                        words.numel(), pe.numel()))
     instr = demod_instr(C, n_groups, n_k, T)
     print(f"demod_pack: instruction estimate {instr:.4g} warp instructions "
           f"= {instr / WARP_INSTR_RATE * 1e3:.4f} ms at 4 per SM and clock, "
@@ -761,9 +693,9 @@ def kernel_checks(fe, xb):
     # the bit-sliced form's instructions on this card (LOP3, SHF), 32
     # offsets per word, at the int32 rate
     parts = detect_instr_per_word(s["max_ac_errors"])
-    ops = hit.numel() * parts["total"]
-    nbytes = wd.numel() * 4 + 2 * hit.numel() * 4
-    b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+    cost = detect_words_cost(wd.numel(), hit.numel(), s["max_ac_errors"])
+    ops = cost[1]
+    b_ms, b_by = bound(*cost)
     two = detect_ops_per_word(s["max_ac_errors"])
     print(f"detect_words: {parts['total']} LOP3/SHF instructions per "
           f"32-offset word ({parts}), {ops:.4g} in all, bound "
@@ -788,8 +720,8 @@ def kernel_checks(fe, xb):
           f"{n_diff} words differ from the plain version (exact required)")
     assert n_diff == 0
     # the same operations, and 7 more planes written
-    nbytes = wd.numel() * 4 + (2 + detect_kernel.N_ERR) * hit.numel() * 4
-    b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+    b_ms, b_by = bound(*detect_words_cost(wd.numel(), hit.numel(),
+                                          s["max_ac_errors"], emit_err=True))
     rows[DETECT_ERR] = dict(
         max_abs_err=0.0,
         ms=graph_ms(lambda: detect_kernel.detect_words(*dargs,
@@ -810,7 +742,7 @@ def kernel_checks(fe, xb):
     assert torch.equal(xp, pxp) and torch.equal(xp, lib6())
     print(f"deinterleave: xp {tuple(xp.shape)} equal to the plain version "
           f"and to the reshape-transpose copy (exact required)")
-    b_ms, b_by = bound(2 * xp.numel() * 4, 0)
+    b_ms, b_by = bound(*deinterleave_cost(xp.numel()))
     rows["deinterleave"] = dict(
         max_abs_err=0.0,
         ms=graph_ms(lambda: pfb.deinterleave(xb, D)),
@@ -830,8 +762,7 @@ def kernel_checks(fe, xb):
           f"{err_c:.3e} (tolerance 2e-5); cuDNN conv1d yardstick max "
           f"|conv - kernel| = {err_lib:.3e}")
     assert err_c <= 2e-5, err_c
-    flops = n5 * channelize_ops(C, M, Q)
-    b_ms, b_by = bound(xp.numel() * 4 + 2 * C * n5 * 4, flops)
+    b_ms, b_by = bound(*pfb_channelize_cost(xp.numel(), C, n5, M, Q))
     rows["pfb_channelize"] = dict(
         max_abs_err=err_c,
         ms=graph_ms(lambda: pfb_kernel.pfb_channelize(xp, *bank)),
@@ -1149,28 +1080,6 @@ def dense_detector(words, n_sym: int, masks, max_ac_errors: int = 6):
     return launches, n, n_hits
 
 
-def piconet_sims():
-    return [testing.PiconetSim(lap=lap, uap=uap, clk0=clk0)
-            for lap, uap, clk0 in PICONETS]
-
-
-def mode_captures(fs: float, center: float, n_slots: int = MODE_SLOTS,
-                  seed: int = MODE_SEED):
-    """bench.py's three sniffer captures: {"max_rate": every slot a DM1
-    of the three piconets in turn, "mixed": every slot busy with mixed
-    1/3/5-slot DM/DH packets, "e2e": the first piconet alone, a DM1 in
-    every other slot}, each (complex64 samples, sent)."""
-    sims = piconet_sims()
-    return {
-        "max_rate": testing.make_multi_piconet_capture(sims, n_slots, fs,
-                                                       center, seed=seed),
-        "mixed": testing.make_hostile_capture(sims, n_slots, fs, center,
-                                              seed=seed),
-        "e2e": testing.make_piconet_capture(
-            sims[0], n_slots, fs, center, seed=seed, noise_std=0.02,
-            tx_slots=range(0, n_slots - 8, 2))}
-
-
 def _pkt_key(p):
     return (p.clkn, p.channel, p.lap, p.uap, p.packet_type,
             None if p.payload is None else p.payload.tobytes())
@@ -1400,7 +1309,7 @@ _LOG_PKT = re.compile(r"grbt\.sniffer INFO time\s+(\d+) ch\s+(\d+) LAP "
                       r"([0-9a-f]{6}) (\S+)")
 
 
-def run_cli(args, stdin: bytes, device=None, module=CLI):
+def run_cli(args, stdin: bytes, device=None, module=CLI, timeout=600):
     """The port's btrx (or another of its CLIs, `module`) as a subprocess
     from the checkout's root, fed `stdin`; `device` adds --device.
     Returns (CompletedProcess, host seconds)."""
@@ -1410,7 +1319,7 @@ def run_cli(args, stdin: bytes, device=None, module=CLI):
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
     r = subprocess.run(cmd, input=stdin, capture_output=True, cwd=ROOT,
-                       env=env, timeout=600)
+                       env=env, timeout=timeout)
     dt = time.perf_counter() - t0
     if r.returncode != 0:
         raise RuntimeError(f"{module} exit {r.returncode}:\n"
@@ -2158,6 +2067,73 @@ def multicard_phase(n_cards: int):
         dryrun_multichip(n_cards, cards)
 
 
+# ------------------------------------------------------------------ phase 10
+
+BENCH = "gr_bluetooth_tpu_torch.bench"
+# the 16 and 8 MHz int8 operating points decode every planted in-band
+# packet, 94 and 44 (the JAX package's counts on the same captures,
+# BENCH_r05.json)
+BENCH_POINTS = {"band16MHz_int8": 94, "band8MHz_int8": 44}
+
+
+def check_bench(out: dict, stderr: str, rows: dict):
+    """Phase 10's checks on the bench's JSON line `out` (and its
+    stderr): LAP parity held (no parity failure reported, value > 0);
+    the BENCH_POINTS operating points decoded all their planted in-band
+    packets; the hostile loads decoded at least MIN_DECODED in every
+    decode mode they ran (scalar and batched; for max_rate also the
+    second batched run and the pool); and roofline.modeled_ms equals the
+    sum of phase 3's bounds of the fused chain's kernels (`rows`)."""
+    assert "parity FAIL" not in stderr and out["value"] > 0, \
+        f"LAP parity failed: value {out['value']}"
+    points = out["e2e_operating_points"]
+    for name, want in BENCH_POINTS.items():
+        p = points[name]
+        assert p["planted_in_band"] == p["decoded"] == want, (name, p)
+    for name, want in MIN_DECODED.items():
+        dec = {k: v for k, v in out["sniffer_hostile"][name].items()
+               if k.startswith("decoded_")}
+        modes = ["decoded_scalar", "decoded_batched"]
+        if name == "max_rate":
+            modes += ["decoded_batched_run2"] + [
+                k for k in dec if k.startswith("decoded_parallel")][:1]
+        assert len(modes) == len(dec) and set(modes) == set(dec), \
+            (name, sorted(dec))
+        assert all(v >= want for v in dec.values()), (name, dec, want)
+    modeled = sum(rows[k.__name__]["bound_ms"] for k in FUSED)
+    assert out["roofline"]["modeled_ms"] == modeled, \
+        (out["roofline"]["modeled_ms"], modeled)
+
+
+def bench_phase(rows: dict):
+    """Phase 10: `python -m gr_bluetooth_tpu_torch.bench` (no --device)
+    as a subprocess; its whole output read here, its last line parsed
+    and held to check_bench against phase 3's rows."""
+    r, dt = run_cli([], b"", module=BENCH, timeout=900)
+    out = json.loads(r.stdout.decode().strip().splitlines()[-1])
+    check_bench(out, r.stderr.decode(), rows)
+    roof, points = out["roofline"], out["e2e_operating_points"]
+    print(f"bench: exit 0 in {dt:.1f} s wall; device loop {out['value']:.6g} "
+          f"samples/s (parity held); ingest int16 / int8 / int4 "
+          f"{out['ingest_samples_per_s_int16']:.6g} / "
+          f"{out['ingest_samples_per_s_int8']:.6g} / "
+          f"{out['ingest_samples_per_s_int4']:.6g} samples/s; roofline "
+          f"modeled {roof['modeled_ms']:.4f} ms = phase 3's bounds, actual "
+          f"{roof['actual_ms']:.4f} ms")
+    for name, p in points.items():
+        if name in BENCH_POINTS or name == "note":
+            continue
+        print(f"bench {name}: {p['decoded']} decoded of "
+              f"{p['planted_in_band']} planted in band")
+    for name, want in BENCH_POINTS.items():
+        print(f"bench {name}: {want} of {want} decoded")
+    for op in roof["top_ops"]:
+        print(f"bench top op: {op['ms_per_block']:.4f} ms/block "
+              f"{op['calls_per_block']:g} calls/block  {op['op']}")
+    print(f"bench line: {json.dumps(out)}")
+    return out
+
+
 @contextlib.contextmanager
 def timed(label: str):
     """Print a phase's wall time when it ends."""
@@ -2262,6 +2238,9 @@ def main(argv=None) -> int:
         two_process_phase(planes, sharded)
     print("two processes: the NCCL path (halo device to device) was not "
           "run: NCCL refuses two ranks on one GPU (`--cards N` runs it)")
+
+    with timed("phase 10, the bench"):
+        bench_phase(rows)
 
     launches[DETECT_ERR] = err_launches
     out = []

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
+from gr_bluetooth_tpu_torch import bench
 from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
 from gr_bluetooth_tpu_torch.models.lap_survey import LapObservation, LapSurvey
 from gr_bluetooth_tpu_torch.ops import pfb_kernel
@@ -209,7 +210,7 @@ def test_mode_captures_equal_the_jax_package(mode_caps):
     from gr_bluetooth_tpu import testing as jtesting
     caps, _ = mode_caps
     sims = [jtesting.PiconetSim(lap=lap, uap=uap, clk0=clk0)
-            for lap, uap, clk0 in chip_smoke.PICONETS]
+            for lap, uap, clk0 in bench.PICONETS]
     want = {"max_rate": jtesting.make_multi_piconet_capture(
                 sims, 256, 8e6, 2441e6, seed=13),
             "mixed": jtesting.make_hostile_capture(sims, 256, 8e6, 2441e6,

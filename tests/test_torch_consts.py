@@ -7,8 +7,8 @@
   * no file of the port (its CLI in apps/, the I/O, resampler,
     conv-bank, parallel-decode and blocks modules, the Kismet survey in
     kismet/, the sharded front ends in parallel/, the compiled steps in
-    utils/graph.py and graft_entry.py among them), and not
-    chip_smoke.py, imports jax or gr_bluetooth_tpu;
+    utils/graph.py, graft_entry.py and the benchmark bench.py among
+    them), and not chip_smoke.py, imports jax or gr_bluetooth_tpu;
   * entry points with no device on a machine without a card raise, odd
     and off-grid rates build their own front ends (an odd rate's has no
     fused chain, and its fused_step raises), and the kernel wrappers
@@ -30,7 +30,7 @@ from gr_bluetooth_tpu.models import frontend as jfrontend
 from gr_bluetooth_tpu.ops import pfb as jpfb
 from gr_bluetooth_tpu.ops import snr as jsnr
 from gr_bluetooth_tpu.ops import synth as jsynth
-from gr_bluetooth_tpu_torch import convert, graft_entry
+from gr_bluetooth_tpu_torch import bench, convert, graft_entry
 from gr_bluetooth_tpu_torch.core import access_code
 from gr_bluetooth_tpu_torch.io import ingest, native
 from gr_bluetooth_tpu_torch.kismet import KismetSource
@@ -150,7 +150,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "kismet/source.py", "kismet/server.py", "parallel/sharded.py",
             "parallel/sharded2d.py", "parallel/dryrun.py",
             "parallel/worker.py", "utils/graph.py",
-            "graft_entry.py"} <= scanned
+            "graft_entry.py", "bench.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -205,6 +205,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ShardedFrontEnd(fe)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         graft_entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run()
 
 
 @pytest.mark.parametrize("kw", [dict(sample_rate=5e6),

@@ -874,3 +874,68 @@ def test_compiled_ingest_equals_eager_ingest_on_card(cuda):
         assert np.array_equal(ra.windows, rb.windows)
         assert np.array_equal(ra.le_windows, rb.le_windows)
     assert sum(len(r.hits) for r in a) >= 10
+
+
+def test_bench_stream_runner_equals_eager_on_card(cuda):
+    """The bench's device loop (gr_bluetooth_tpu_torch/bench.py: block
+    i % K copied into the compiled fused step's input, the checksum added
+    on the step's stream) over more blocks than it holds: the checksum of
+    the eager fused step on the same blocks, exactly; the parity runner's
+    counts and tables equal the eager step's."""
+    from gr_bluetooth_tpu_torch import bench
+    fe = FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=1)
+    x, _ = chip_smoke.plant_capture(fe, 3, seed=4)
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    xd = bench.stage_blocks(fe, planes, 3)
+    want = torch.zeros((), device=cuda)
+    outs = []
+    for i in range(7):
+        _, n, tab, win, _, _, _ = fe.fused_step(xd[i % 3])
+        want = (want + n.to(torch.float32) + tab[0, 1].to(torch.float32)
+                + win[0, 0].to(torch.float32))
+        outs.append((n.clone(), tab.clone()))
+    assert bench.make_stream_runner(fe, 3)(xd, 7) == float(want) != 0.0
+    n, tabs = bench.make_parity_runner(fe, 3)(xd)
+    for i in range(3):
+        assert int(n[i]) == int(outs[i][0])
+        assert torch.equal(tabs[i], outs[i][1])
+    assert int(n.sum()) >= 5
+
+
+@pytest.mark.parametrize("name,wire,np_dtype,scale,full", [
+    ("int16", "i16", np.int16, 32767.0, 32768.0),
+    ("int8", "i8", np.int8, 127.0, 128.0),
+    ("int4", "i4", np.uint8, 8.0, 8.0)])
+def test_bench_ingest_runner_equals_eager_on_card(cuda, name, wire,
+                                                  np_dtype, scale, full):
+    """The bench's ingest (pageable copies on a copy stream, two blocks
+    in flight, the compiled flat step with its static carry) against the
+    eager body on the card: every block's checksum and the final carry,
+    bit for bit."""
+    from gr_bluetooth_tpu_torch import bench
+    fe = FrontEnd(8e6, 2441e6, block_slots=8, max_ac_errors=1)
+    x, _ = chip_smoke.plant_capture(fe, 4, seed=6)
+    planes = np.stack([x.real, x.imag]).astype(np.float32)
+    ov, st = fe.overlap_samples, fe.step_samples
+    if wire == "i4":
+        xi = ingest.wire_encode(planes, wire)
+        blocks = [xi[ov + i * st: ov + (i + 1) * st] for i in range(3)]
+    else:
+        xc = np.clip(planes * scale, -full, full - 1).astype(np_dtype)
+        blocks = [xc[:, ov + i * st: ov + (i + 1) * st] for i in range(3)]
+    step = bench.make_ingest_runner(fe, np_dtype, 1.0 / full, wire=wire)
+    assert step.step.graph is not None
+    carry0 = torch.from_numpy(planes[:, :ov].copy()).to(cuda)
+    _, accs, carry = bench.run_ingest(step, carry0, blocks, 5)
+    c = carry0.clone()
+    for i in range(5):
+        new = torch.from_numpy(np.ascontiguousarray(blocks[i % 3])).to(cuda)
+        x_new = (ingest.wire_decode(new, "i4") if wire == "i4"
+                 else new.to(torch.float32) * (1.0 / full))
+        xb = torch.cat([c, x_new], 1)
+        _, n, tab, win, _, _, _ = fe.device_step(xb)
+        want = (n.to(torch.float32) + tab[0, 1].to(torch.float32)
+                + win[0, 0].to(torch.float32))
+        assert float(accs[i]) == float(want), i
+        c = xb[:, -ov:].clone()
+    assert torch.equal(carry.view(torch.int32), c.view(torch.int32))
