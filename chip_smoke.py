@@ -8,7 +8,7 @@ NVIDIA card, at the full-band configuration: 80 Msps centred on
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit, from nvidia-smi;
-2. build the five CUDA libraries from csrc/ (nvcc, one process each, all
+2. build the six CUDA libraries from csrc/ (nvcc, one process each, all
    started together);
 3. on one full-band block, run each kernel and its plain PyTorch version
    on the same device tensors and hold them together:
@@ -17,6 +17,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        detect_words    exact
        deinterleave    exact
        pfb_channelize  y within 2e-5
+       le_detect       exact (hit plane and distances; on the block's LE
+                       rows and on phase 5's first block, which has LE
+                       packets)
    and time each (device time per launch from a CUDA graph of 20
    launches, replayed; and per back-to-back wrapper call, host time
    included) beside the plain version and, where one PyTorch call
@@ -30,7 +33,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    once, one replay per block) of the fused chain with LE off and on,
    the flat chain with LE on and the 81 Msps conv bank, each on its
    block against its eager step, bit for bit (SNR, counts, tables and
-   windows); event ms per block and device-busy share of both forms;
+   windows); event ms per block and device-busy share of both forms,
+   and the fused LE-on replay's top ten device ops (ms and calls);
    then stream() over phase 4's capture with the eager ingest and the
    compiled one, in turns: the same hits, samples/s and the stage split
    (wire_encode, h2d, device_step, assemble).  From here on every path
@@ -50,20 +54,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    LE channels 37, 38 and 39 (BR channels 0, 24 and 78).  Every planted
    (LAP, channel) and every planted LE packet must be reported at its
    slot (+-1), no other LAP and no other advertising-channel packet may
-   be, and deinterleave, pfb_channelize and detect_words must each
-   launch once per block (pfb_snr and demod_pack not at all).  The same
-   capture through stream() (the fused chain, LE on) must give the same
-   classic and LE hit keys, slot SNR within 1e-3 dB, and hit windows
-   within 1 mismatched symbol per 10^5 inside the capture (the
-   discriminators differ: torch.atan2 on the flat chain, atan2_poly in
-   demod_pack; past the capture's end, in the zero padding of the last
-   block, they differ on signed zeros, and those symbols are counted
-   and printed apart);
+   be, and deinterleave, pfb_channelize, detect_words and le_detect
+   must each launch once per block (pfb_snr and demod_pack not at
+   all).  The same capture through stream() (the fused chain, LE on)
+   must give the same classic and LE hit keys, slot SNR within 1e-3
+   dB, and hit windows within 1 mismatched symbol per 10^5 inside the
+   capture (the discriminators differ: torch.atan2 on the flat chain,
+   atan2_poly in demod_pack; past the capture's end, in the zero
+   padding of the last block, they differ on signed zeros, and those
+   symbols are counted and printed apart);
 6. a small reference: an 8 Msps survey on the card against the plain
    versions on the CPU — same observations, SNR within 1e-3 dB;
 7. the modes, at full band over bench.py's sniffer captures (three
    piconets, 256 slots, seed 13; counters zeroed before each run and read
-   after it: the fused chain's three kernels once per block, no other):
+   after it: the fused chain's three kernels once per block, le_detect
+   once per block where LE is on, no other):
    a. Sniffer (LE on).run over `max_rate` (a DM1 in every slot, 250
       planted) and `mixed` (every slot busy with 1/3/5-slot DM/DH, 101
       planted): every decoded packet is a planted one (slot, channel,
@@ -154,13 +159,15 @@ After the build it prints each kernel's registers, shared memory and
 spills (nvcc -Xptxas -v).
 
 The next-to-last line is {"kernels": [...]}, one row per kernel and one
-for detect_words with emit_err (times in ms on this card: ms from graph
-replay, call_ms per wrapper call; bound_ms is the larger of bytes /
-3.35 TB/s and operations over the peak rate of their type: 67 T/s for
-float32, 16.75 T/s for int32 and logical instructions; the channelizers'
-DFT counts as an M-point FFT at 5 M log2 M, the detector as this card's
-LOP3 and SHF instructions (detect_instr_per_word); bound_frac =
-bound_ms / ms); the last line is
+for detect_words with emit_err; le_detect has no TPU counterpart, its
+"replaces" names the JAX function it computes (times in ms on this
+card: ms from graph replay, call_ms per wrapper call; bound_ms is the
+larger of bytes / 3.35 TB/s and operations over the peak rate of their
+type: 67 T/s for float32, 16.75 T/s for int32 and logical instructions;
+the channelizers' DFT counts as an M-point FFT at 5 M log2 M, the
+detector as this card's LOP3 and SHF instructions
+(detect_instr_per_word), le_detect as its integer operations per offset
+(bench.le_detect_cost); bound_frac = bound_ms / ms); the last line is
 {"ok": true, "device": {...}}.
 With no CUDA device the script exits non-zero before printing any
 result.
@@ -197,7 +204,8 @@ from gr_bluetooth_tpu_torch import testing
 from gr_bluetooth_tpu_torch.bench import (INT32_OPS, bound, channelize_ops,
                                           deinterleave_cost, demod_pack_cost,
                                           detect_instr_per_word,
-                                          detect_words_cost, mode_captures,
+                                          detect_words_cost, le_detect_cost,
+                                          mode_captures,
                                           pfb_channelize_cost, pfb_snr_cost,
                                           piconet_sims)
 from gr_bluetooth_tpu_torch.constants import (LE_ADV_AA, SYMBOLS_PER_SLOT,
@@ -210,7 +218,7 @@ from gr_bluetooth_tpu_torch.models.hopper import Hopper
 from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
 from gr_bluetooth_tpu_torch.models.sniffer import Sniffer
 from gr_bluetooth_tpu_torch.models.uap_discovery import UapDiscovery
-from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel,
+from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect, detect_kernel,
                                         hop_ops, pfb, pfb_kernel, snr, synth)
 from gr_bluetooth_tpu_torch.utils import cuda_build
 from gr_bluetooth_tpu_torch.utils.bits import host_to_air
@@ -226,7 +234,9 @@ FUSED = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
          detect_kernel.detect_words)
 FLAT = (pfb.deinterleave, pfb_kernel.pfb_channelize,
         detect_kernel.detect_words)
-KERNELS = FUSED + FLAT[:2]
+# the LE detector on the words, on either chain's tail with LE on
+LE = detect.le_detect
+KERNELS = FUSED + FLAT[:2] + (LE,)
 # detect_words with emit_err (its error-count planes) is a kernel of its
 # own, counted apart in detect_words.err_launches
 DETECT_ERR = "detect_words_err"
@@ -237,6 +247,8 @@ REPLACES = {
     DETECT_ERR: "gr_bluetooth_tpu/ops/detect_pallas.py:200",
     "pfb_channelize": "gr_bluetooth_tpu/ops/pfb_kernel.py:193",
     "deinterleave": "gr_bluetooth_tpu/ops/pfb.py:126",
+    # no Pallas kernel: the JAX function it computes, as plain jnp
+    "le_detect": "gr_bluetooth_tpu/ops/detect.py:205",
 }
 # decoded packets each capture must give at 80 Msps, of 250 and 101
 # planted (the JAX package's counts on the same captures, BENCH_r05.json)
@@ -781,6 +793,64 @@ def kernel_checks(fe, xb):
     return rows, wd
 
 
+def block_words(fe, xb):
+    """One block's (79, W) packed words from the fused chain's kernels
+    (probe row dropped)."""
+    c, s = fe.consts, fe.statics
+    Q, D = c["h0"].shape
+    _, n_data, _, n_k, n_frames = frontend.step_geometry(
+        xb.shape[1], Q, D, s["n_sym"], s["slot_ch"], c["probe_re"].shape[0])
+    yr, yi, _ = pfb_kernel.pfb_snr(xb, c["h0"], c["h1"], c["dft_c"],
+                                   c["dft_s"], c["bin_odd"], n_frames)
+    words, _ = demod_kernel.demod_pack(yr, yi, s["demod_gain"], s["n_sym"],
+                                       c["probe_re"], c["probe_im"], n_k,
+                                       n_data)
+    return words[:-1]
+
+
+def le_kernel_check(fe_le, blocks):
+    """Phase 3: le_detect against its plain version on the LE rows of
+    each (label, words) block, hit plane and distances exact; timed on
+    the last block.  Returns its row."""
+    c, s = fe_le.consts, fe_le.statics
+    tables = {k: c[k] for k in ("le_pre_dist", "le_aa_dist", "le_acc_dist",
+                                "le_dat_dist")}
+    for label, w in blocks:
+        args = (w, c["le_rows"], s["n_sym"], c["le_white_word"],
+                c["le_aa_on"], c["le_max_dist"])
+        hitw, dist = LE(*args, **tables)
+        phitw, pdist = detect.le_detect_plain(*args, **tables)
+        torch.cuda.synchronize()
+        n_diff = int((hitw != phitw).sum().item() +
+                     (dist != pdist).sum().item())
+        n_hits = int(detect_kernel.popcount(hitw.to(torch.int64) &
+                                            0xFFFFFFFF).sum().item())
+        print(f"le_detect ({label}): hit plane {tuple(hitw.shape)}, dist "
+              f"{tuple(dist.shape)}: {n_diff} words and distances differ "
+              f"from the plain version (exact required); {n_hits} hits "
+              f"before the squelch")
+        assert n_diff == 0
+    assert n_hits > 0, "no LE hit on the block with LE packets"
+    R, W = c["le_rows"].shape[0], w.shape[1]
+    n_adv = int((c["le_aa_on"] > 0.5).sum().item())
+    b_ms, b_by = bound(*le_detect_cost(R, W, dist.shape[1], n_adv))
+    row = dict(
+        max_abs_err=0.0,
+        ms=graph_ms(lambda: LE(*args, **tables)),
+        call_ms=time_ms(lambda: LE(*args, **tables), 50),
+        plain_ms=time_ms(lambda: detect.le_detect_plain(*args, **tables),
+                         10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row["bound_frac"] = row["bound_ms"] / row["ms"]
+    print(f"le_detect: kernel {row['ms']:.4f} ms (graph replay; "
+          f"{row['call_ms']:.4f} ms per wrapper call), plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {100 * row['bound_frac']:.1f} % of it), "
+          f"library none ({R} rows, {n_adv} advertising, "
+          f"{dist.shape[1]} offsets)")
+    return row
+
+
 def device_events(fn, n: int):
     """torch.profiler over n calls of fn: its device-side events (a host
     op's device time repeats that of the kernels it launched), busiest
@@ -821,9 +891,7 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
           f"step = {100 * busy / ms:.1f}% of the {ms:.4f} ms CUDA-event "
           f"step (profiled window {wall * 1e3 / n:.3f} ms per step, host "
           f"clock)")
-    for e in evs[:12]:
-        print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step "
-              f"{e.count // n:4d} calls/step  {e.key[:70]}")
+    print_ops(evs, n, 12)
     prof_ms = {}
     for k in kernels:
         name = k.__name__
@@ -832,6 +900,13 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
         assert t, f"{name}_kernel not in the profile"
         prof_ms[name] = sum(t) / n / 1e3
     return prof_ms
+
+
+def print_ops(evs, n: int, k: int):
+    """The k busiest device ops of a profiler window over n steps."""
+    for e in evs[:k]:
+        print(f"  {e.self_device_time_total / n / 1e3:9.4f} ms/step "
+              f"{e.count // n:4d} calls/step  {e.key[:70]}")
 
 
 # ------------------------------------------------------------------ phase 3d
@@ -905,6 +980,10 @@ def compiled_phase(fe, fe_le, xb):
               f"per block, device busy {_share(r_busy, r_ms)} (CUDA "
               f"events, 20 steps; profiler, 5); launches per replay "
               f"{step.launches_per_replay}")
+        if label == "fused LE on":
+            evs, _ = device_events(step.replay, 5)
+            print(f"compiled {label}: top ten device ops of the replay")
+            print_ops(evs, 5, 10)
     stream_phase()
 
 
@@ -972,8 +1051,9 @@ def main_path(survey, n_blocks: int):
     print(f"main path: {n_in / dt:.6g} samples/s host clock to synchronize "
           f"({dt:.4f} s for {n_in} samples), peak device memory "
           f"{peak / 2 ** 20:.1f} MiB")
+    on = FUSED + ((LE,) if survey.fe.enable_le else ())
     for k in KERNELS:
-        want = n_blocks if k in FUSED else 0
+        want = n_blocks if k in on else 0
         assert launches[k.__name__] == want, (k.__name__, launches, want)
 
     metrics.reset()
@@ -1020,7 +1100,7 @@ def flat_path(fe, n_blocks: int):
           f"included), peak device memory {peak / 2 ** 20:.1f} MiB")
     assert len(flat) == n_blocks, len(flat)
     for k in KERNELS:
-        want = n_blocks if k in FLAT else 0
+        want = n_blocks if k in FLAT + (LE,) else 0
         assert launches[k.__name__] == want, (k.__name__, launches, want)
 
     fused = list(fe.stream(x))
@@ -1193,11 +1273,13 @@ def _counts():
     return c
 
 
-def _want_fused(counts, n_blocks):
-    """The modes' path: the fused chain's kernels once per block, the
-    flat chain's and the error planes not at all."""
+def _want_fused(counts, n_blocks, le: bool):
+    """The modes' path: the fused chain's kernels once per block, and
+    le_detect once per block where LE is on (`le`), the flat chain's and
+    the error planes not at all."""
+    on = [k.__name__ for k in FUSED + ((LE,) if le else ())]
     for name, n in counts.items():
-        want = n_blocks if name in [k.__name__ for k in FUSED] else 0
+        want = n_blocks if name in on else 0
         assert n == want, (name, counts, n_blocks)
 
 
@@ -1215,7 +1297,7 @@ def sniffer_phase(name: str, x, sent, sims):
     counts, peak = _counts(), torch.cuda.max_memory_allocated()
     n = check_sniffer(decoded, sn.bus, sent, sims, MIN_DECODED[name])
     blocks = list(sn.fe.stream(x))
-    _want_fused(counts, len(blocks))
+    _want_fused(counts, len(blocks), sn.fe.enable_le)
     n_hits = sum(len(r.hits) for r in blocks)
     again = Sniffer(FS, CENTER, block_slots=BLOCK_SLOTS, bus=EventBus())
     t0 = time.perf_counter()
@@ -1261,7 +1343,7 @@ def e2e_phase(x, sent, sim):
     counts, peak = _counts(), torch.cuda.max_memory_allocated()
     n0 = check_hopper(hp, decoded, sim)
     n_blocks = -(-x.shape[0] // hp.fe.step_samples)
-    _want_fused(counts, n_blocks)
+    _want_fused(counts, n_blocks, hp.fe.enable_le)
     assert hp.piconet.device.type == "cuda" and \
         n0 > hp.piconet.DEVICE_WINNOW_THRESHOLD, (hp.piconet.device, n0)
     survivors = replay_winnower(hp.piconet, hp.piconet.device)
@@ -1293,7 +1375,7 @@ def le_phase():
     dt = time.perf_counter() - t0
     counts = _counts()
     n = check_le_connection(sn, sim, sent)
-    _want_fused(counts, 2)
+    _want_fused(counts, 2, sn.fe.enable_le)
     print(f"sniffer LE connection: AA {sim.conn_aa:#010x}, CRCInit "
           f"{sim.crc_init:#08x}, hop {sim.hop_increment}; {n} data packets "
           f"followed with a good CRC of "
@@ -1628,7 +1710,7 @@ def offgrid_phase(fs: float = 7.68e6, n_slots: int = 96, device="cuda"):
     assert sn.decoded and all((p.lap, p.uap) == (sim.lap, sim.uap)
                               for p in sn.decoded)
     if counts is not None:
-        _want_fused(counts, len(blocks))
+        _want_fused(counts, len(blocks), sn.fe.enable_le)
     print(f"off-grid {fs / 1e6:g} Msps -> {sn.fe.bank.fs / 1e6:g} Msps, "
           f"channels {sn.fe.bank.channels}: UAP {pn.uap:#04x}, "
           f"{len(sn.decoded)} packets decoded of {len(sent)} planted, "
@@ -1783,7 +1865,7 @@ def kismet_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
     assert set(src.tracker.tracked_nets) == twice, \
         (sorted(src.tracker.tracked_nets), sorted(twice))
     if card:
-        _want_fused(counts, n_blocks)
+        _want_fused(counts, n_blocks, src.fe.enable_le)
 
     # the server: snapshot on connect, then one tick's dirty records
     server = BtbbDevServer(src.tracker)
@@ -1865,7 +1947,7 @@ def sharded_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
     peak = _peak(devices) if card else None
     n_sb = n_blocks // n_shards
     if card:
-        _want_fused(counts, n_shards * n_sb)
+        _want_fused(counts, n_shards * n_sb, fe.enable_le)
     t0 = time.perf_counter()
     want = list(fe.stream(planes))
     dt_stream = time.perf_counter() - t0
@@ -1973,7 +2055,7 @@ def grid_phase(fs=FS, center=CENTER, block_slots=BLOCK_SLOTS,
     dt = time.perf_counter() - t0
     counts = _counts() if card else None
     if card:
-        _want_fused(counts, 2 * n_blocks)
+        _want_fused(counts, 2 * n_blocks, fe.enable_le)
     want = list(fe.stream(planes))
     d_snr = compare_streams("2-D", got, want)
     check_survey([h for r in got for h in r.hits], planted)
@@ -2184,12 +2266,17 @@ def main(argv=None) -> int:
         x, _ = plant_capture(fe, 1, seed=9)
         xb = fe.to_planes(x[: fe.block_samples])
         rows, words = kernel_checks(fe, xb)
+        x_le, _, _ = plant_le_capture(fe_le, N_BLOCKS)
+        rows["le_detect"] = le_kernel_check(fe_le, (
+            ("phase 3's block", words),
+            ("phase 5's first block, with LE packets", block_words(
+                fe_le, fe_le.to_planes(x_le[: fe_le.block_samples])))))
         err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
                                             fe.consts["ac_masks"])
         profs = (("fused", step_profile("fused chain (LE off)",
                                         fe.fused_step, xb, FUSED)),
                  ("flat", step_profile("flat chain (LE on)",
-                                       fe_le.device_step, xb, FLAT)))
+                                       fe_le.device_step, xb, FLAT + (LE,))))
         ms = time_ms(lambda: fe_le.fused_step(xb), 20)
         print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA "
               f"events, 20 steps)")
@@ -2206,7 +2293,7 @@ def main(argv=None) -> int:
         launches = main_path(survey, N_BLOCKS)
     with timed("phase 5, flat path"):
         flat_launches = flat_path(fe_le, N_BLOCKS)
-    for k in FLAT[:2]:
+    for k in FLAT[:2] + (LE,):
         launches[k.__name__] = flat_launches[k.__name__]
     with timed("phase 6, small reference"):
         small_reference()

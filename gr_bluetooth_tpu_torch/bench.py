@@ -250,6 +250,27 @@ def pfb_channelize_cost(xp_numel: int, C: int, n_out: int, M: int, Q: int):
             n_out * channelize_ops(C, M, Q), FP32_OPS)
 
 
+# le_detect's integer operations per offset (csrc/le_detect.cu): on every
+# row the two funnel-shift views, the header's shift, XOR and mask, its
+# two byte indices and the preamble's mask, three table lookups, two adds
+# and the compare with max_dist; on the advertising rows also the four AA
+# byte indices (six shifts and masks), four lookups and four adds
+LE_OPS_DATA, LE_OPS_ADV = 13, 27
+
+
+def le_detect_cost(R: int, W: int, n_le: int, n_adv: int):
+    """le_detect over R LE rows of W words, n_adv of them advertising:
+    the rows' words, the row constants (index, whitening word, aa_on,
+    max_dist) and the four tables (2,560 int32) in, the hit plane
+    (R, ceil(n_le / 32)) and dist (R, n_le) out; LE_OPS_DATA or
+    LE_OPS_ADV per offset of the 32 of every output word, at the int32
+    rate."""
+    w_le = -(-n_le // 32)
+    return (R * W * 4 + R * 20 + 2560 * 4 + R * w_le * 4 + R * n_le * 4,
+            32 * w_le * ((R - n_adv) * LE_OPS_DATA + n_adv * LE_OPS_ADV),
+            INT32_OPS)
+
+
 def fused_costs(fe) -> dict:
     """{kernel: (bytes, operations, rate)} of the fused chain's three
     kernels on one block of fe (a polyphase bank), from its geometry:

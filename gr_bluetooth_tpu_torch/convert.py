@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models.frontend import consts_to_device
-from .ops.detect import le_table_consts
+from .models.frontend import (ac_product_consts, consts_to_device,
+                              le_step_consts)
 from .ops.detect_kernel import ac_masks
 
 __all__ = ["consts_from_jax", "state_from_jax"]
@@ -22,7 +22,6 @@ __all__ = ["consts_from_jax", "state_from_jax"]
 _STATICS = ("decim", "n_sym", "n_y", "slot_ch", "kappa", "demod_gain",
             "max_ac_errors", "delay_sym", "squelch", "max_hits",
             "max_le_hits")
-_LE = ("le_rows", "le_white", "le_aa_on", "le_max_dist")
 
 
 def consts_from_jax(step_kwargs: dict):
@@ -31,24 +30,29 @@ def consts_from_jax(step_kwargs: dict):
     `.to(device)`) and its scalar step arguments.
 
     Requires the packed (use_pallas) PFB configuration, the only one the
-    port runs: word_s0 and word_mask_a must be present.  With LE on
-    (with_le) the LE row constants come across too, with the LE distance
-    tables, which the JAX step holds as module constants."""
+    port runs: word_s0 and word_mask_a must be present.  The affine
+    access-code map (A68, C68v) comes across as detect_words' masks and
+    as the hit rows' product constants.  With LE on (with_le) the LE row
+    constants come across too (the whitening bits packed to a word per
+    row), with the LE squelch word constants and the LE distance tables,
+    which the JAX step holds as module constants."""
     kw = step_kwargs
     if not kw.get("is_pfb") or kw.get("word_s0") is None:
         raise ValueError("consts_from_jax needs the packed PFB step "
                          "(even-integer rate, use_pallas=True)")
+    a68 = np.asarray(kw["A68"]).astype(np.int64)
+    c68v = np.asarray(kw["C68v"]).astype(np.int64)
     consts = dict(
         h0=kw["h0"], h1=kw["h1"], dft_c=kw["dft_c"], dft_s=kw["dft_s"],
         bin_odd=kw["bin_odd"], probe_re=kw["probe_re"],
-        probe_im=kw["probe_im"],
-        ac_masks=ac_masks(np.asarray(kw["A68"]).astype(np.int64),
-                          np.asarray(kw["C68v"]).astype(np.int64)),
-        word_s0=kw["word_s0"], word_mask_a=kw["word_mask_a"])
+        probe_im=kw["probe_im"], ac_masks=ac_masks(a68, c68v),
+        word_s0=kw["word_s0"], word_mask_a=kw["word_mask_a"],
+        **ac_product_consts(a68, c68v))
     if kw.get("with_le"):
-        consts.update({k: kw[k] for k in _LE})
         consts["le_rows"] = np.asarray(kw["le_rows"]).astype(np.int64)
-        consts.update(le_table_consts())
+        consts.update(le_step_consts(kw["le_white"], kw["le_aa_on"],
+                                     kw["le_max_dist"], n_sym=kw["n_sym"],
+                                     delay_sym=kw["delay_sym"]))
     consts = consts_to_device(consts, "cpu")
     statics = {k: kw[k] for k in _STATICS}
     return consts, statics

@@ -45,9 +45,12 @@ All steps end in the same packed tail (_packed_tail):
 
     detect_words   packed access-code detection      [CUDA, ops/detect_kernel]
     squelch AND on word planes, first-k hit extraction, bit-aligned window
-    gather, LAP and error count from each window     [torch, below]
-    LE (enable_le): the LE rows' dense bits, the LE detector, the dense
-    squelch gate, first-k extraction, LE windows     [torch, ops/detect]
+    gather, LAP and error count from each window (the 68 bits against
+    the A68 product, as the reference)              [torch, below]
+    LE (enable_le): le_detect on the packed words (packed hit plane and
+    dense distances)                                [CUDA, ops/detect]
+    then squelch AND on word planes, first-k extraction, the distance
+    gather, LE windows                              [torch, below]
 
 Nothing on the step reads a value back to the host, and its shapes are
 static, so on a CUDA device each step is captured once as a CUDA graph
@@ -71,8 +74,8 @@ from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT,
 from ..core.le_tables import freq2index
 from ..ops import (channelizer, demod, demod_kernel, detect, detect_kernel,
                    pfb, pfb_kernel, resample, snr)
-from ..ops.detect_kernel import ac_errors, popcount, u32_to_i32
-from ..utils.device import resolve_device
+from ..ops.detect_kernel import popcount, u32_to_i32
+from ..utils.device import fp32_matmul, resolve_device
 from ..utils.graph import StepCache
 from ..utils.log import get_logger
 
@@ -192,7 +195,7 @@ class FrontEnd:
             max_hits=self.max_hits, max_le_hits=self.max_le_hits)
         s0, ma = _word_slot_consts(-(-n_off // 32), self.delay_sym)
         consts = dict(ac_masks=detect_kernel.ac_masks(), word_s0=s0,
-                      word_mask_a=ma)
+                      word_mask_a=ma, **ac_product_consts())
         if self.is_pfb:
             sc = snr.make_stream_snr_consts(b)
             Q = b.h0.shape[0]
@@ -209,11 +212,11 @@ class FrontEnd:
             consts.update(kernel=b.kernel, rot_q=b.rot_q, on_w=w.on_w,
                           off_w=w.off_w)
         if self.enable_le:
-            white, aa_on, max_dist = detect.le_row_consts(
-                [r[2] for r in self.le_rows])
             consts.update(le_rows=np.array([r[0] for r in self.le_rows]),
-                          le_white=white, le_aa_on=aa_on,
-                          le_max_dist=max_dist, **detect.le_table_consts())
+                          **le_step_consts(
+                              *detect.le_row_consts(
+                                  [r[2] for r in self.le_rows]),
+                              n_sym=self.n_sym, delay_sym=self.delay_sym))
         self.consts = consts_to_device(consts, self.device)
         self.graphs = StepCache(self.device)   # the compiled steps
         self._ingests: dict = {}        # wire -> PipelinedIngest
@@ -456,13 +459,35 @@ def _planes(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
 
+def ac_product_consts(a68=detect_kernel.A68, c68v=detect_kernel.C68V):
+    """The affine access-code map as the hit rows' float32 product takes
+    it: ac_a68t (24, 68) = A68 transposed, ac_c68 (68,) = C68."""
+    return dict(ac_a68t=np.ascontiguousarray(
+                    (np.asarray(a68)[:68] & 1).T.astype(np.float32)),
+                ac_c68=(np.asarray(c68v)[:68] & 1).astype(np.float32))
+
+
+def le_step_consts(white, aa_on, max_dist, *, n_sym: int,
+                   delay_sym: int) -> dict:
+    """The LE branch's constants besides le_rows, from le_row_consts'
+    (white, aa_on, max_dist): the packed whitening words, aa_on and
+    max_dist, the squelch word constants for the n_sym - 55 LE offsets
+    and the distance tables."""
+    s0, ma = _word_slot_consts(-(-(n_sym - detect.LE_SPAN + 1) // 32),
+                               delay_sym)
+    return dict(le_white_word=detect.le_white_words(white), le_aa_on=aa_on,
+                le_max_dist=max_dist, le_word_s0=s0, le_word_mask_a=ma,
+                **detect.le_table_consts())
+
+
 def consts_to_device(consts: dict, device) -> dict:
     """Numpy bank/detector constants -> the step's tensors on `device`
-    (word_s0 as int64 indices, the rest in their own dtypes)."""
+    (word_s0 and le_word_s0 as int64 indices, the rest in their own
+    dtypes)."""
     out = {}
     for k, v in consts.items():
         v = np.asarray(v)
-        if k == "word_s0":
+        if k in ("word_s0", "le_word_s0"):
             v = v.astype(np.int64)
         out[k] = torch.from_numpy(np.array(v, copy=True)).to(device)
     return out
@@ -617,7 +642,7 @@ def _device_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re,
                                   slot_ch=slot_ch, kappa=kappa)
     _, bits = demod.demod_and_slice(yr[:-1], yi[:-1], demod_gain, 2.0, n_sym)
     words = detect_kernel.pack_bits_words(bits)
-    return _packed_tail(words, bits, snr_db, n_sym=n_sym, **tail)
+    return _packed_tail(words, snr_db, n_sym=n_sym, **tail)
 
 
 def _conv_step(x_ri, *, kernel, rot_q, on_w, off_w, decim, sps, ch_sps,
@@ -632,7 +657,7 @@ def _conv_step(x_ri, *, kernel, rot_q, on_w, off_w, decim, sps, ch_sps,
     snr_db, _, _ = snr._slot_snr_impl(x_ri, on_w, off_w, slot_len)
     _, bits = demod.demod_and_slice(yr, yi, demod_gain, ch_sps, n_sym)
     words = detect_kernel.pack_bits_words(bits)
-    return _packed_tail(words, bits, snr_db, n_sym=n_sym, **tail)
+    return _packed_tail(words, snr_db, n_sym=n_sym, **tail)
 
 
 def _fused_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re, probe_im,
@@ -653,47 +678,71 @@ def _fused_step(x_ri, *, h0, h1, dft_c, dft_s, bin_odd, probe_re, probe_im,
     snr_db = snr.assemble_slot_snr(oe, pe, S=S, slot_ch=slot_ch,
                                    kappa=kappa, tile=pfb_kernel.TF)
     # drop the probe row
-    return _packed_tail(words[:-1], None, snr_db, n_sym=n_sym, **tail)
+    return _packed_tail(words[:-1], snr_db, n_sym=n_sym, **tail)
 
 
-def _packed_tail(words, bits, snr_db, *, ac_masks, word_s0, word_mask_a,
-                 n_sym, max_ac_errors, delay_sym, squelch, max_hits,
-                 max_le_hits, le_rows=None, le_white=None, le_aa_on=None,
-                 le_max_dist=None, **le_tables):
+def _packed_tail(words, snr_db, *, ac_masks, ac_a68t, ac_c68, word_s0,
+                 word_mask_a, n_sym, max_ac_errors, delay_sym, squelch,
+                 max_hits, max_le_hits, le_rows=None, **le_consts):
     """Both chains' tail (gr_bluetooth_tpu/models/frontend.py:750-808):
-    (C, W) packed words, the dense (C, n_sym) bits where the chain has
-    them (else None), (S, C) slot SNR -> the step's 7-tuple."""
+    (C, W) packed words, (S, C) slot SNR -> the step's 7-tuple.  The
+    group delay (delay_sym, a static of every step) is built into the
+    squelch word constants."""
+    del delay_sym
     hitw, _, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
                                             max_ac_errors, ac_masks)
     if squelch is not None:
         hitw = hitw & _squelch_gate_words(snr_db, word_s0, word_mask_a,
                                           squelch)
     n_hits, chan, off, valid = _extract_hits_packed(hitw, max_hits)
-    # windows are bit-aligned to each hit, so the LAP (symbols 38..61 =
-    # word 1 bits 6..29) and the AC error count are functions of the
-    # window itself
     windows = _gather_windows(words, chan, off, valid, WIN_SYMBOLS)
-    wu = windows[:, :3].to(torch.int64) & _M32
-    lap, err = ac_errors(wu[:, 0], wu[:, 1], wu[:, 2] & 0xF, ac_masks)
-    neg = torch.full_like(chan, -1)
-    tab = torch.stack([torch.where(valid, chan, neg),
-                       torch.where(valid, off, neg),
-                       torch.where(valid, lap, neg),
-                       torch.where(valid, err, neg)], 1).to(torch.int32)
+    tab = _hit_rows(windows, chan, off, valid, ac_a68t, ac_c68)
     if le_rows is None:
         return snr_db, n_hits.to(torch.int32), tab, windows, None, None, None
+    return (snr_db, n_hits.to(torch.int32), tab, windows,
+            *_le_tail(words, snr_db, le_rows, n_sym=n_sym, squelch=squelch,
+                      max_le_hits=max_le_hits, **le_consts))
 
-    le_bits = (_unpack_word_rows(words, le_rows, n_sym) if bits is None
-               else bits[le_rows])
-    le_hits, le_dist = detect.le_detect_batch(le_bits, le_white, le_aa_on,
-                                              le_max_dist, **le_tables)
+
+def _hit_rows(windows, chan, off, valid, ac_a68t, ac_c68):
+    """The classic hit table (K, 4) int32 [chan, offset, LAP, errors], -1
+    on rows that are not valid, from the hits' bit-aligned windows
+    (gr_bluetooth_tpu/models/frontend.py:764-776 and :793-796): the LAP
+    is symbols 38..61 = window word 1 bits 6..29, the error count the
+    mismatches of the 68 bits with the access code that the LAP bits
+    predict, A68 lap + C68 mod 2, as one float32 product (0/1 values and
+    sums of at most 25: exact at any float32 precision, run in FP32 all
+    the same)."""
+    b = (windows[:, :3, None] >> torch.arange(32, device=windows.device)) & 1
+    bits68 = b.reshape(-1, 96)[:, :68].to(torch.float32)
+    with fp32_matmul():
+        pred = torch.addmm(ac_c68, bits68[:, 38:62], ac_a68t)
+    err = (bits68 != torch.remainder(pred, 2.0)).sum(1)
+    lap = (windows[:, 1] >> 6) & 0xFFFFFF
+    return torch.where(valid[:, None],
+                       torch.stack([chan, off, lap, err], 1),
+                       -1).to(torch.int32)
+
+
+def _le_tail(words, snr_db, le_rows, *, n_sym, squelch, max_le_hits,
+             le_white_word, le_aa_on, le_max_dist, le_word_s0,
+             le_word_mask_a, **le_tables):
+    """The LE branch on packed planes (gr_bluetooth_tpu/models/
+    frontend.py:797-808): (n_le, le_tab, le_windows).  le_detect's hit
+    plane ANDed with the packed squelch gate of the LE rows, the first
+    max_le_hits hits in row-major order (n_le counts them all), their
+    distances gathered from the dense plane, their windows."""
+    hitw, dist = detect.le_detect(words, le_rows, n_sym, le_white_word,
+                                  le_aa_on, le_max_dist, **le_tables)
     if squelch is not None:
-        le_hits = le_hits & _squelch_gate(snr_db[:, le_rows],
-                                          le_hits.shape[1], delay_sym,
-                                          squelch)
-    n_le, le_tab, le_chan, le_off, le_valid = _extract_hits(
-        le_hits, max_le_hits, [le_dist])
-    le_windows = _gather_windows(words, le_rows[le_chan], le_off, le_valid,
+        hitw = hitw & _squelch_gate_words(snr_db[:, le_rows], le_word_s0,
+                                          le_word_mask_a, squelch)
+    n_le, chan, off, valid = _extract_hits_packed(hitw, max_le_hits)
+    # rows past the count point into the last word, whose bits may lie
+    # past the n_le offsets of the dense plane
+    d = dist[chan, off.clamp(max=dist.shape[1] - 1)]
+    le_tab = torch.where(valid[:, None], torch.stack([chan, off, d], 1),
+                         -1).to(torch.int32)
+    le_windows = _gather_windows(words, le_rows[chan], off, valid,
                                  LE_WIN_SYMBOLS)
-    return (snr_db, n_hits.to(torch.int32), tab, windows, n_le, le_tab,
-            le_windows)
+    return n_le.to(torch.int32), le_tab, le_windows

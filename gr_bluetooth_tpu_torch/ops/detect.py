@@ -1,4 +1,4 @@
-"""LE access-address detection over dense symbol rows.
+"""LE access-address detection.
 
 The port of the LE half of gr_bluetooth_tpu/ops/detect.py
 (_le_dewhiten_header_bits, le_row_consts, _le_detect_batch_impl): for
@@ -9,11 +9,21 @@ in the generated tables (core/le_tables.py; the tables the reference
 hard-codes, lib/packet_impl.cc:1316-1444).  The reference slides one
 offset at a time (sniff_aa, lib/packet_impl.cc:1452-1527).
 
-Torch code: the JAX package computes it outside any Pallas kernel.
-Field values are integers built from shifted bit slices; the table
-lookups take int64 indices.
+The JAX package computes it outside any Pallas kernel, as plain jnp
+over dense rows.  The port has two forms:
+
+  le_detect_batch  the dense form over (R, T) symbol rows, in torch:
+                   field values built from shifted bit slices, table
+                   lookups with int64 indices;
+  le_detect        the step's form over the packed word plane: a CUDA
+                   kernel (csrc/le_detect.cu, a port kernel with no TPU
+                   counterpart) for CUDA tensors; for CPU tensors its
+                   plain version, le_detect_plain (the rows unpacked,
+                   le_detect_batch, the hits packed).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -21,8 +31,14 @@ import torch
 from ..core import whitening
 from ..core.le_tables import (AA_DISTANCE, ACCESS_HEADER_DISTANCE,
                               DATA_HEADER_DISTANCE, LE_PREAMBLE_DISTANCE)
+from ..utils import cuda_build
+from .detect_kernel import pack_bits_words, unpack_words
 
-__all__ = ["le_detect_batch", "le_row_consts", "le_table_consts"]
+__all__ = ["le_detect", "le_detect_batch", "le_detect_plain",
+           "le_row_consts", "le_table_consts", "le_white_words",
+           "LE_SPAN"]
+
+LE_SPAN = 56       # symbols an offset reads: preamble, AA, header
 
 
 def _le_dewhiten_header_bits(index: int) -> np.ndarray:
@@ -39,6 +55,13 @@ def le_row_consts(indices) -> tuple:
     max_dist = np.array([[2 if i >= 37 else 0] for i in indices],
                         dtype=np.int32)
     return white.astype(np.float32), aa_on, max_dist
+
+
+def le_white_words(white) -> np.ndarray:
+    """(R, 16) 0/1 whitening bits (le_row_consts) -> (R,) int32, bit j =
+    white[:, j]: le_detect's per-row whitening word."""
+    w = np.asarray(white).astype(np.int64) & 1
+    return (w << np.arange(16)).sum(1).astype(np.int32)
 
 
 def le_table_consts() -> dict:
@@ -85,3 +108,93 @@ def le_detect_batch(bits, white, aa_on, max_dist, *, le_pre_dist,
         aa_d = aa_d + le_aa_dist[k][field(8 + 8 * k, 8)]
     dist = pre_d + hdr_d + torch.where(adv, aa_d, 0)
     return dist <= max_dist, dist
+
+
+def _check(words, rows, white_word, aa_on, max_dist, tables):
+    if words.dtype != torch.int32 or words.ndim != 2:
+        raise TypeError("le_detect: words must be (C, W) int32")
+    R = rows.shape[0]
+    want = dict(rows=(rows, torch.int64, (R,)),
+                white_word=(white_word, torch.int32, (R,)),
+                aa_on=(aa_on, torch.float32, (R, 1)),
+                max_dist=(max_dist, torch.int32, (R, 1)),
+                le_pre_dist=(tables["le_pre_dist"], torch.int32, (512,)),
+                le_aa_dist=(tables["le_aa_dist"], torch.int32, (4, 256)),
+                le_acc_dist=(tables["le_acc_dist"], torch.int32, (2, 256)),
+                le_dat_dist=(tables["le_dat_dist"], torch.int32, (2, 256)))
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape or \
+                t.device != words.device:
+            raise ValueError(f"le_detect: {name} must be {dtype} of shape "
+                             f"{shape} on the words' device")
+
+
+def le_detect_plain(words, rows, n_sym: int, white_word, aa_on, max_dist,
+                    *, le_pre_dist, le_aa_dist, le_acc_dist, le_dat_dist):
+    """Plain PyTorch version of le_detect (same arguments and results):
+    the rows unpacked to dense symbols, le_detect_batch, the hits
+    packed."""
+    bits = unpack_words(words[rows], n_sym)
+    white = (white_word[:, None] >>
+             torch.arange(16, device=words.device)) & 1
+    hits, dist = le_detect_batch(
+        bits, white, aa_on, max_dist, le_pre_dist=le_pre_dist,
+        le_aa_dist=le_aa_dist, le_acc_dist=le_acc_dist,
+        le_dat_dist=le_dat_dist)
+    return pack_bits_words(hits), dist
+
+
+def _launcher():
+    fn = cuda_build.load("le_detect").le_detect_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, P, I, P, P, P, P, P, P, P, I, I, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, **tables):
+    """LE detection on the packed word plane.
+
+    words (C, W) int32 (symbol t at bit t % 32 of word t // 32, at least
+    n_sym symbols), rows (R,) int64 word rows of the LE channels,
+    white_word (R,) int32 (le_white_words), aa_on (R, 1) float32 and
+    max_dist (R, 1) int32 (le_row_consts), and the four tables of
+    le_table_consts (le_pre_dist, le_aa_dist, le_acc_dist, le_dat_dist),
+    all on the words' device -> (hitw, dist): the packed hit plane
+    (R, ceil(n_le / 32)) int32, bit t of word w = offset 32w + t, zero
+    past n_le = n_sym - 55 offsets; and dist (R, n_le) int32, as
+    le_detect_batch on the unpacked rows.  A CPU tensor runs the plain
+    version; a CUDA tensor launches csrc/le_detect.cu, counted in
+    le_detect.launches."""
+    _check(words, rows, white_word, aa_on, max_dist, tables)
+    n_le = n_sym - LE_SPAN + 1
+    if n_le <= 0 or n_sym > 32 * words.shape[1]:
+        raise ValueError(f"le_detect: {n_sym} symbols do not fit the words "
+                         f"or hold no LE offset")
+    if words.device.type == "cpu":
+        return le_detect_plain(words, rows, n_sym, white_word, aa_on,
+                               max_dist, **tables)
+    if words.device.type != "cuda":
+        raise ValueError(f"le_detect: unsupported device {words.device}")
+    R, W = rows.shape[0], words.shape[1]
+    w_le = -(-n_le // 32)
+    words = words.contiguous()
+    hitw = torch.empty((R, w_le), dtype=torch.int32, device=words.device)
+    dist = torch.empty((R, n_le), dtype=torch.int32, device=words.device)
+    t = [tables[k].contiguous() for k in ("le_pre_dist", "le_aa_dist",
+                                          "le_acc_dist", "le_dat_dist")]
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = _launcher()(words.data_ptr(), W, rows.contiguous().data_ptr(),
+                         R, white_word.contiguous().data_ptr(),
+                         aa_on.contiguous().data_ptr(),
+                         max_dist.contiguous().data_ptr(),
+                         *(x.data_ptr() for x in t), n_le, w_le,
+                         hitw.data_ptr(), dist.data_ptr(), stream)
+    cuda_build.check(rc, "le_detect")
+    le_detect.launches += 1
+    return hitw, dist
+
+
+le_detect.launches = 0

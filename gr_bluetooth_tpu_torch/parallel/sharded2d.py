@@ -115,8 +115,9 @@ class Sharded2DFrontEnd:
                         [fe.le_rows[j][2] for j in m])
                     rows[:k] = [fe.le_rows[j][0] - starts[g] for j in m]
                     white[:k], aa[:k], dist[:k] = w, a, d
-                group_consts[g].update(le_rows=rows, le_white=white,
-                                       le_aa_on=aa, le_max_dist=dist)
+                group_consts[g].update(
+                    le_rows=rows, le_white_word=detect.le_white_words(white),
+                    le_aa_on=aa, le_max_dist=dist)
 
         on_dev: dict = {}
         self.columns = []

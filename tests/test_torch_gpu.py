@@ -11,7 +11,8 @@ Tolerances are the card's: the kernels contract multiply-adds into FMAs
 and sum in another order than the plain versions, so channel streams
 agree within 2e-5, slot SNR within 1e-3 dB, packed symbols up to one
 mismatch per 10^5 (at least one allowed), detector planes and the
-deinterleaved planes exactly.  The two chains of the step (device_step
+deinterleaved planes and the LE detector's hit plane and distances
+exactly.  The two chains of the step (device_step
 and stream_sync: deinterleave, pfb_channelize, torch demod; stream():
 pfb_snr, demod_pack) are held to each other with the same tolerances.
 """
@@ -23,8 +24,9 @@ import chip_smoke
 from gr_bluetooth_tpu_torch.io import ingest
 from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
-from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect_kernel, pfb,
-                                        pfb_kernel, snr)
+from gr_bluetooth_tpu_torch.core import packets
+from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect, detect_kernel,
+                                        pfb, pfb_kernel, snr)
 from gr_bluetooth_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.gpu
@@ -939,3 +941,83 @@ def test_bench_ingest_runner_equals_eager_on_card(cuda, name, wire,
         assert float(accs[i]) == float(want), i
         c = xb[:, -ov:].clone()
     assert torch.equal(carry.view(torch.int32), c.view(torch.int32))
+
+
+def _le_args(fe, words):
+    c, s = fe.consts, fe.statics
+    tables = {k: c[k] for k in ("le_pre_dist", "le_aa_dist", "le_acc_dist",
+                                "le_dat_dist")}
+    return (words, c["le_rows"], s["n_sym"], c["le_white_word"],
+            c["le_aa_on"], c["le_max_dist"]), tables
+
+
+def _le_exact(fe, words):
+    """le_detect against its plain version on one word plane: the hit
+    plane and the distances bit for bit.  Returns the hit count."""
+    args, tables = _le_args(fe, words)
+    n = detect.le_detect.launches
+    hitw, dist = detect.le_detect(*args, **tables)
+    assert detect.le_detect.launches == n + 1
+    phitw, pdist = detect.le_detect_plain(*args, **tables)
+    assert torch.equal(hitw, phitw) and torch.equal(dist, pdist)
+    return _popcount_diff(hitw, torch.zeros_like(hitw))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_le_detect_kernel_matches_plain_at_full_band(cuda, seed):
+    """Full band (40 LE rows of 79, n_sym 43,125): random words with LE
+    advertising and data frames planted at every bit alignment, some
+    with flipped symbols, and at the rows' last offset; bits past n_sym
+    random."""
+    fe = FrontEnd(80e6, 2441e6, block_slots=64, enable_le=True)
+    n_sym = fe.n_sym
+    W = -(-n_sym // 32) + 2
+    r = np.random.default_rng(seed)
+    bits = r.integers(0, 2, (79, 32 * W)).astype(np.uint8)
+    n_le = n_sym - detect.LE_SPAN + 1
+    for j, (row, _ch, index) in enumerate(fe.le_rows):
+        for k in range(40):
+            off = n_le - 1 if k == 39 else 97 * (j + 40 * k) % (n_le - 64) \
+                + k % 32
+            if index >= 37:
+                f = packets.encode_le_adv(0x8E89BED6, index, k % 7,
+                                          bytes(range(8)), crc=False)
+            else:
+                f = packets.encode_le_data(0x50654A3B + k, index, 1 + k % 3,
+                                           bytes(range(5)),
+                                           crc_init=0x555555)
+            f = f[:detect.LE_SPAN].copy()
+            f[r.permutation(detect.LE_SPAN)[:k % 4]] ^= 1
+            bits[row, off: off + detect.LE_SPAN] = f
+    words = np.packbits(bits, axis=1, bitorder="little").view("<u4")
+    w = torch.from_numpy(words.view(np.int32).copy()).to(cuda)
+    assert _le_exact(fe, w) >= 200
+
+
+def test_le_detect_kernel_on_a_planted_block(cuda):
+    """The words of a full-band block with LE advertising packets
+    planted (chip_smoke.py phase 5's capture, its first block)."""
+    fe = FrontEnd(80e6, 2441e6, block_slots=64, max_ac_errors=1,
+                  enable_le=True)
+    x, _, le_planted = chip_smoke.plant_le_capture(fe, chip_smoke.N_BLOCKS)
+    words = chip_smoke.block_words(fe, fe.to_planes(x[: fe.block_samples]))
+    assert _le_exact(fe, words) >= len(le_planted) // chip_smoke.N_BLOCKS
+
+
+@pytest.mark.parametrize("chain", ["fused", "flat"])
+def test_le_detect_launches_once_per_replay(cuda, chain):
+    """With LE on, each replay of either chain's step launches le_detect
+    once, and equals the eager step."""
+    fe = FrontEnd(8e6, 2426e6, block_slots=8, max_ac_errors=1,
+                  enable_le=True)
+    x, _, _ = chip_smoke.plant_le_capture(fe, 3, le_per_block=2)
+    xb = fe.to_planes(x[: fe.block_samples])
+    eager = fe.fused_step if chain == "fused" else fe.device_step
+    want = _clone(eager(xb))
+    step = fe.compiled_step(chain)
+    assert step.launches_per_replay["le_detect.launches"] == 1
+    n = detect.le_detect.launches
+    for _ in range(3):
+        chip_smoke.check_replay(chain, step(xb), want)
+    assert detect.le_detect.launches == n + 3
+    assert int(want[4]) >= 1
