@@ -8,8 +8,8 @@ NVIDIA card, at the full-band configuration: 80 Msps centred on
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit, from nvidia-smi;
-2. build the six CUDA libraries from csrc/ (nvcc, one process each, all
-   started together);
+2. build the seven CUDA libraries from csrc/ (nvcc, one process each,
+   all started together);
 3. on one full-band block, run each kernel and its plain PyTorch version
    on the same device tensors and hold them together:
        pfb_snr         y within 2e-5, slot SNR within 1e-3 dB
@@ -17,9 +17,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        detect_words    exact
        deinterleave    exact
        pfb_channelize  y within 2e-5
-       le_detect       exact (hit plane and distances; on the block's LE
+       le_detect       exact, both forms (the step's, hits only, and the
+                       one with the dense distances; on the block's LE
                        rows and on phase 5's first block, which has LE
                        packets)
+       hit_table       exact (count, table, windows): the classic form
+                       over detect_words' planes of the block and of
+                       phase 5's first block, the LE form over
+                       le_detect's plane of phase 5's first block
    and time each (device time per launch from a CUDA graph of 20
    launches, replayed; and per back-to-back wrapper call, host time
    included) beside the plain version and, where one PyTorch call
@@ -34,7 +39,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the flat chain with LE on and the 81 Msps conv bank, each on its
    block against its eager step, bit for bit (SNR, counts, tables and
    windows); event ms per block and device-busy share of both forms,
-   and the fused LE-on replay's top ten device ops (ms and calls);
+   and each fused replay's device ops: their number per replay and the
+   top ten (ms and calls);
    then stream() over phase 4's capture with the eager ingest and the
    compiled one, in turns: the same hits, samples/s and the stage split
    (wire_encode, h2d, device_step, assemble).  From here on every path
@@ -45,7 +51,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on 24 channels (0 and 78 among them), several per slot, through the
    pipelined stream (the fused chain).  Every planted (LAP, channel) must
    be reported at its slot (+-1), no other LAP may be, and the launch
-   count of each fused-chain kernel must equal the number of blocks.
+   count of each fused-chain kernel and of hit_table must equal the
+   number of blocks.
    The same capture runs once more, warm, for the steady-state rate and
    its stage breakdown;
 5. the flat path: FrontEnd(80e6, 2441e6, block_slots=64,
@@ -54,9 +61,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    LE channels 37, 38 and 39 (BR channels 0, 24 and 78).  Every planted
    (LAP, channel) and every planted LE packet must be reported at its
    slot (+-1), no other LAP and no other advertising-channel packet may
-   be, and deinterleave, pfb_channelize, detect_words and le_detect
-   must each launch once per block (pfb_snr and demod_pack not at
-   all).  The same capture through stream() (the fused chain, LE on)
+   be, and deinterleave, pfb_channelize, detect_words, le_detect (its
+   step form) and hit_table in both forms must each launch once per
+   block (pfb_snr and demod_pack not at all).  The same capture through stream() (the fused chain, LE on)
    must give the same classic and LE hit keys, slot SNR within 1e-3
    dB, and hit windows within 1 mismatched symbol per 10^5 inside the
    capture (the discriminators differ: torch.atan2 on the flat chain,
@@ -67,8 +74,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    versions on the CPU — same observations, SNR within 1e-3 dB;
 7. the modes, at full band over bench.py's sniffer captures (three
    piconets, 256 slots, seed 13; counters zeroed before each run and read
-   after it: the fused chain's three kernels once per block, le_detect
-   once per block where LE is on, no other):
+   after it: the fused chain's three kernels and hit_table once per
+   block, le_detect and hit_table's LE form once per block where LE is
+   on, no other):
    a. Sniffer (LE on).run over `max_rate` (a DM1 in every slot, 250
       planted) and `mixed` (every slot busy with 1/3/5-slot DM/DH, 101
       planted): every decoded packet is a planted one (slot, channel,
@@ -101,8 +109,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    b. LapSurvey(81e6, 2441e6, block_slots=64) over 3 planted blocks:
       the strided conv bank (cuDNN conv1d, FP32 whatever the TF32
       flags: checked within 2e-5 of the CPU with cuDNN TF32 on), every
-      planted pair found, detect_words once per block and no other
-      kernel; its step profiled and the conv bank timed against its
+      planted pair found, detect_words and hit_table once per block and
+      no other kernel; its step profiled and the conv bank timed against its
       FP32 operation bound; then 5 Msps on the card against the CPU;
    c. Sniffer(7.68e6, 2441e6) over a capture resampled to 7.68 Msps
       (the polyphase bank at 8 Msps on the true band's channels): UAP
@@ -158,16 +166,20 @@ offset equal, and classic_detect_words' hits against detect_words'.
 After the build it prints each kernel's registers, shared memory and
 spills (nvcc -Xptxas -v).
 
-The next-to-last line is {"kernels": [...]}, one row per kernel and one
-for detect_words with emit_err; le_detect has no TPU counterpart, its
-"replaces" names the JAX function it computes (times in ms on this
+The next-to-last line is {"kernels": [...]}, one row per kernel, one
+for detect_words with emit_err and one for hit_table's LE form;
+le_detect's row is its step form, with the form with the distances
+under "dist_form"; le_detect and hit_table have no TPU counterpart,
+their "replaces" names the JAX code they compute (times in ms on this
 card: ms from graph replay, call_ms per wrapper call; bound_ms is the
 larger of bytes / 3.35 TB/s and operations over the peak rate of their
 type: 67 T/s for float32, 16.75 T/s for int32 and logical instructions;
 the channelizers' DFT counts as an M-point FFT at 5 M log2 M, the
 detector as this card's LOP3 and SHF instructions
 (detect_instr_per_word), le_detect as its integer operations per offset
-(bench.le_detect_cost); bound_frac = bound_ms / ms); the last line is
+(bench.le_detect_cost), hit_table as the bytes of its plane, constants
+and windows (bench.hit_table_cost); bound_frac = bound_ms / ms); the
+last line is
 {"ok": true, "device": {...}}.
 With no CUDA device the script exits non-zero before printing any
 result.
@@ -204,8 +216,8 @@ from gr_bluetooth_tpu_torch import testing
 from gr_bluetooth_tpu_torch.bench import (INT32_OPS, bound, channelize_ops,
                                           deinterleave_cost, demod_pack_cost,
                                           detect_instr_per_word,
-                                          detect_words_cost, le_detect_cost,
-                                          mode_captures,
+                                          detect_words_cost, hit_table_cost,
+                                          le_detect_cost, mode_captures,
                                           pfb_channelize_cost, pfb_snr_cost,
                                           piconet_sims)
 from gr_bluetooth_tpu_torch.constants import (LE_ADV_AA, SYMBOLS_PER_SLOT,
@@ -219,7 +231,8 @@ from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
 from gr_bluetooth_tpu_torch.models.sniffer import Sniffer
 from gr_bluetooth_tpu_torch.models.uap_discovery import UapDiscovery
 from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect, detect_kernel,
-                                        hop_ops, pfb, pfb_kernel, snr, synth)
+                                        hit_table, hop_ops, pfb, pfb_kernel,
+                                        snr, synth)
 from gr_bluetooth_tpu_torch.utils import cuda_build
 from gr_bluetooth_tpu_torch.utils.bits import host_to_air
 from gr_bluetooth_tpu_torch.utils.log import EventBus
@@ -234,12 +247,22 @@ FUSED = (pfb_kernel.pfb_snr, demod_kernel.demod_pack,
          detect_kernel.detect_words)
 FLAT = (pfb.deinterleave, pfb_kernel.pfb_channelize,
         detect_kernel.detect_words)
-# the LE detector on the words, on either chain's tail with LE on
+# the LE detector on the words, on either chain's tail with LE on (its
+# step form, hits only; with the dense distances, for the checks, it is
+# counted apart in le_detect.dist_launches)
 LE = detect.le_detect
-KERNELS = FUSED + FLAT[:2] + (LE,)
+LE_DIST = "le_detect_dist"
+# the hit table after detect_words on every chain (hit_table.launches),
+# and its LE form after le_detect (hit_table.le_launches)
+HT = hit_table.hit_table
+HT_LE = "hit_table_le"
+KERNELS = FUSED + FLAT[:2] + (LE, HT)
 # detect_words with emit_err (its error-count planes) is a kernel of its
 # own, counted apart in detect_words.err_launches
 DETECT_ERR = "detect_words_err"
+# each kernel's symbol in a profile, where it is not "<name>_kernel"
+SYMBOL = {"hit_table": "hit_table_kernel<false>",
+          HT_LE: "hit_table_kernel<true>"}
 REPLACES = {
     "pfb_snr": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "demod_pack": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
@@ -249,6 +272,9 @@ REPLACES = {
     "deinterleave": "gr_bluetooth_tpu/ops/pfb.py:126",
     # no Pallas kernel: the JAX function it computes, as plain jnp
     "le_detect": "gr_bluetooth_tpu/ops/detect.py:205",
+    # no Pallas kernel: the JAX step's tail after detection, plain jnp
+    "hit_table": "gr_bluetooth_tpu/models/frontend.py:753",
+    HT_LE: "gr_bluetooth_tpu/models/frontend.py:800",
 }
 # decoded packets each capture must give at 80 Msps, of 250 and 101
 # planted (the JAX package's counts on the same captures, BENCH_r05.json)
@@ -613,7 +639,8 @@ def detect_ops_per_word(max_err: int) -> int:
 
 def kernel_checks(fe, xb):
     """Phase 3: each kernel against its plain version on one block.
-    Returns the kernels' rows and the block's (79, W) packed words."""
+    Returns the kernels' rows, the block's (79, W) packed words and its
+    (S, 79) slot SNR."""
     c, s = fe.consts, fe.statics
     Q, D = c["h0"].shape
     C, M = c["dft_c"].shape[1], 2 * D
@@ -790,65 +817,150 @@ def kernel_checks(fe, xb):
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_frac']:.1f} % of it), "
               f"library {r['library_ms']}")
-    return rows, wd
+    return rows, wd, snr_k
 
 
-def block_words(fe, xb):
-    """One block's (79, W) packed words from the fused chain's kernels
-    (probe row dropped)."""
+def block_step_inputs(fe, xb):
+    """One block's tail inputs from the fused chain's kernels: the
+    (79, W) packed words (probe row dropped) and the (S, 79) slot SNR."""
     c, s = fe.consts, fe.statics
     Q, D = c["h0"].shape
-    _, n_data, _, n_k, n_frames = frontend.step_geometry(
+    _, n_data, S, n_k, n_frames = frontend.step_geometry(
         xb.shape[1], Q, D, s["n_sym"], s["slot_ch"], c["probe_re"].shape[0])
-    yr, yi, _ = pfb_kernel.pfb_snr(xb, c["h0"], c["h1"], c["dft_c"],
-                                   c["dft_s"], c["bin_odd"], n_frames)
-    words, _ = demod_kernel.demod_pack(yr, yi, s["demod_gain"], s["n_sym"],
-                                       c["probe_re"], c["probe_im"], n_k,
-                                       n_data)
-    return words[:-1]
+    yr, yi, oe = pfb_kernel.pfb_snr(xb, c["h0"], c["h1"], c["dft_c"],
+                                    c["dft_s"], c["bin_odd"], n_frames)
+    words, pe = demod_kernel.demod_pack(yr, yi, s["demod_gain"], s["n_sym"],
+                                        c["probe_re"], c["probe_im"], n_k,
+                                        n_data)
+    snr_db = snr.assemble_slot_snr(oe, pe, S=S, slot_ch=s["slot_ch"],
+                                   kappa=s["kappa"], tile=pfb_kernel.TF)
+    return words[:-1], snr_db
+
+
+def _timed_row(kernel, plain, b_ms, b_by, **extra):
+    """A kernel table row: device ms per launch by graph replay, ms per
+    wrapper call, the plain version's ms and the bound."""
+    row = dict(max_abs_err=0.0, ms=graph_ms(kernel),
+               call_ms=time_ms(kernel, 50), plain_ms=time_ms(plain, 10),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra)
+    row["bound_frac"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def _print_row(name, row, note=""):
+    print(f"{name}: kernel {row['ms']:.4f} ms (graph replay; "
+          f"{row['call_ms']:.4f} ms per wrapper call), plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {100 * row['bound_frac']:.1f} % of it), "
+          f"library none{note}")
 
 
 def le_kernel_check(fe_le, blocks):
-    """Phase 3: le_detect against its plain version on the LE rows of
+    """Phase 3: le_detect in both forms (the step's, hits only, and with
+    the dense distances) against its plain version on the LE rows of
     each (label, words) block, hit plane and distances exact; timed on
-    the last block.  Returns its row."""
+    the last block.  Returns its row (the step form; the form with the
+    distances under "dist_form") and the last block's hit plane."""
     c, s = fe_le.consts, fe_le.statics
-    tables = {k: c[k] for k in ("le_pre_dist", "le_aa_dist", "le_acc_dist",
-                                "le_dat_dist")}
+    tables = {k: c[k] for k in hit_table.LE_TABLES}
     for label, w in blocks:
         args = (w, c["le_rows"], s["n_sym"], c["le_white_word"],
                 c["le_aa_on"], c["le_max_dist"])
         hitw, dist = LE(*args, **tables)
+        step_hitw, none = LE(*args, with_dist=False, **tables)
         phitw, pdist = detect.le_detect_plain(*args, **tables)
         torch.cuda.synchronize()
+        assert none is None
         n_diff = int((hitw != phitw).sum().item() +
+                     (step_hitw != phitw).sum().item() +
                      (dist != pdist).sum().item())
         n_hits = int(detect_kernel.popcount(hitw.to(torch.int64) &
                                             0xFFFFFFFF).sum().item())
-        print(f"le_detect ({label}): hit plane {tuple(hitw.shape)}, dist "
-              f"{tuple(dist.shape)}: {n_diff} words and distances differ "
-              f"from the plain version (exact required); {n_hits} hits "
-              f"before the squelch")
+        print(f"le_detect ({label}): hit plane {tuple(hitw.shape)} of both "
+              f"forms, dist {tuple(dist.shape)}: {n_diff} words and "
+              f"distances differ from the plain version (exact required); "
+              f"{n_hits} hits before the squelch")
         assert n_diff == 0
     assert n_hits > 0, "no LE hit on the block with LE packets"
     R, W = c["le_rows"].shape[0], w.shape[1]
+    n_le = dist.shape[1]
     n_adv = int((c["le_aa_on"] > 0.5).sum().item())
-    b_ms, b_by = bound(*le_detect_cost(R, W, dist.shape[1], n_adv))
-    row = dict(
-        max_abs_err=0.0,
-        ms=graph_ms(lambda: LE(*args, **tables)),
-        call_ms=time_ms(lambda: LE(*args, **tables), 50),
-        plain_ms=time_ms(lambda: detect.le_detect_plain(*args, **tables),
-                         10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    row["bound_frac"] = row["bound_ms"] / row["ms"]
-    print(f"le_detect: kernel {row['ms']:.4f} ms (graph replay; "
-          f"{row['call_ms']:.4f} ms per wrapper call), plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}, {100 * row['bound_frac']:.1f} % of it), "
-          f"library none ({R} rows, {n_adv} advertising, "
-          f"{dist.shape[1]} offsets)")
+    dist_form = _timed_row(
+        lambda: LE(*args, **tables),
+        lambda: detect.le_detect_plain(*args, **tables),
+        *bound(*le_detect_cost(R, W, n_le, n_adv)))
+    row = _timed_row(
+        lambda: LE(*args, with_dist=False, **tables),
+        lambda: detect.le_detect_plain(*args, with_dist=False, **tables),
+        *bound(*le_detect_cost(R, W, n_le, n_adv, with_dist=False)),
+        dist_form=dist_form)
+    note = f" ({R} rows, {n_adv} advertising, {n_le} offsets)"
+    _print_row("le_detect (step form, hits only)", row, note)
+    _print_row("le_detect (with the distances)", dist_form, note)
+    return row, step_hitw
+
+
+def hit_table_args(fe, hitw, words, snr_db, le: bool):
+    """hit_table's arguments for one tail of fe's step: the classic one
+    over detect_words' plane, or the LE one over le_detect's."""
+    c, s = fe.consts, fe.statics
+    if le:
+        return (hitw, words, c["le_rows"], snr_db), dict(
+            word_s0=c["le_word_s0"], word_mask_a=c["le_word_mask_a"],
+            squelch=s["squelch"], max_hits=s["max_le_hits"],
+            le=dict(le_white_word=c["le_white_word"],
+                    le_aa_on=c["le_aa_on"],
+                    **{k: c[k] for k in hit_table.LE_TABLES}))
+    return (hitw, words, None, snr_db), dict(
+        word_s0=c["word_s0"], word_mask_a=c["word_mask_a"],
+        squelch=s["squelch"], max_hits=s["max_hits"],
+        ac={k: c[k] for k in ("ac_a68t", "ac_c68", "ac_masks")})
+
+
+def hit_table_check(name, fe, cases):
+    """Phase 3: hit_table (one epilogue) against its plain version on
+    each (label, hit plane, words, slot SNR) case, count, table and
+    windows exact; timed on the last case.  Returns its row."""
+    le = name == HT_LE
+    for label, hitw, words, snr_db in cases:
+        args, kw = hit_table_args(fe, hitw, words, snr_db, le)
+        got = HT(*args, **kw)
+        want = hit_table.hit_table_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), label
+        n = int(got[0])
+        print(f"{name} ({label}): count {n}, table {tuple(got[1].shape)}, "
+              f"windows {tuple(got[2].shape)} equal to the plain version "
+              f"(exact required)")
+    assert n > 0, f"{name}: no hit on {label}"
+    R, w = hitw.shape
+    K = min(n, kw["max_hits"])
+    row = _timed_row(
+        lambda: HT(*args, **kw),
+        lambda: hit_table.hit_table_plain(*args, **kw),
+        *bound(*hit_table_cost(R, w, snr_db.shape[0], kw["max_hits"],
+                               got[2].shape[1], K, le,
+                               kw["squelch"] is not None)))
+    _print_row(name, row, f" ({R} x {w} plane, {n} hits, max_hits "
+                          f"{kw['max_hits']})")
     return row
+
+
+def tail_checks(fe, fe_le, words, snr_db, words5, snr5, le_hitw5):
+    """Phase 3: hit_table's two forms against the plain version: the
+    classic one over detect_words' planes of phase 3's block and of
+    phase 5's first block, the LE one over le_detect's plane of phase
+    5's first block, each timed on phase 5's block.  Returns their
+    rows."""
+    det = lambda f, w: detect_kernel.detect_words(  # noqa: E731
+        w, f.statics["n_sym"] - 72 + 1, f.statics["max_ac_errors"],
+        f.consts["ac_masks"])[0]
+    return {
+        "hit_table": hit_table_check("hit_table", fe, (
+            ("phase 3's block", det(fe, words), words, snr_db),
+            ("phase 5's first block", det(fe, words5), words5, snr5))),
+        HT_LE: hit_table_check(HT_LE, fe_le, (
+            ("phase 5's first block", le_hitw5, words5, snr5),))}
 
 
 def device_events(fn, n: int):
@@ -874,12 +986,12 @@ def device_events(fn, n: int):
 
 def step_profile(label, step, xb, kernels, reps: int = 20):
     """Phase 3b: one block's whole device step on one chain (`step`, its
-    kernels and the torch glue between them) timed with CUDA events, and
-    a torch.profiler window over a few steps: device time by kernel, and
-    the device's busy share of the CUDA-event step time (the profiler's
-    own overhead stretches its window's host clock, so that is not the
-    denominator).  Returns {kernel name: its profiled device ms per
-    step}."""
+    kernels, named in `kernels`, and the torch glue between them) timed
+    with CUDA events, and a torch.profiler window over a few steps:
+    device time by kernel, and the device's busy share of the CUDA-event
+    step time (the profiler's own overhead stretches its window's host
+    clock, so that is not the denominator).  Returns {kernel name: its
+    profiled device ms per step}."""
     ms = time_ms(lambda: step(xb), reps)
     print(f"{label} step: {ms:.4f} ms per block (CUDA events, {reps} "
           f"steps)")
@@ -893,11 +1005,11 @@ def step_profile(label, step, xb, kernels, reps: int = 20):
           f"clock)")
     print_ops(evs, n, 12)
     prof_ms = {}
-    for k in kernels:
-        name = k.__name__
+    for name in kernels:
+        sym = SYMBOL.get(name, f"{name}_kernel")
         t = [e.self_device_time_total for e in evs
-             if e.key.removeprefix("void ").startswith(f"{name}_kernel")]
-        assert t, f"{name}_kernel not in the profile"
+             if e.key.removeprefix("void ").startswith(sym)]
+        assert t, f"{sym} not in the profile"
         prof_ms[name] = sum(t) / n / 1e3
     return prof_ms
 
@@ -980,9 +1092,12 @@ def compiled_phase(fe, fe_le, xb):
               f"per block, device busy {_share(r_busy, r_ms)} (CUDA "
               f"events, 20 steps; profiler, 5); launches per replay "
               f"{step.launches_per_replay}")
-        if label == "fused LE on":
+        if chain == "fused":
             evs, _ = device_events(step.replay, 5)
-            print(f"compiled {label}: top ten device ops of the replay")
+            n_ops = sum(e.count for e in evs) // 5
+            print(f"compiled {label}: {n_ops} device ops per replay "
+                  f"(kernels, copies and memsets; profiler, 5 replays); "
+                  f"top ten")
             print_ops(evs, 5, 10)
     stream_phase()
 
@@ -1033,15 +1148,12 @@ def main_path(survey, n_blocks: int):
     steady-state host-clock rate and its stage breakdown."""
     from gr_bluetooth_tpu_torch.utils.metrics import metrics
     x, planted = plant_capture(survey.fe, n_blocks)
-    for k in KERNELS:
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
     t0 = time.perf_counter()
     obs = list(survey.run(x, emit_console=False))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     n_found = check_survey(obs, planted)
     n_in = n_blocks * survey.fe.step_samples
@@ -1051,10 +1163,7 @@ def main_path(survey, n_blocks: int):
     print(f"main path: {n_in / dt:.6g} samples/s host clock to synchronize "
           f"({dt:.4f} s for {n_in} samples), peak device memory "
           f"{peak / 2 ** 20:.1f} MiB")
-    on = FUSED + ((LE,) if survey.fe.enable_le else ())
-    for k in KERNELS:
-        want = n_blocks if k in on else 0
-        assert launches[k.__name__] == want, (k.__name__, launches, want)
+    _want_fused(launches, n_blocks, survey.fe.enable_le)
 
     metrics.reset()
     survey.observations.clear()
@@ -1077,15 +1186,12 @@ def flat_path(fe, n_blocks: int):
     this run; then the same capture through stream() (the fused chain)
     against it."""
     x, planted, le_planted = plant_le_capture(fe, n_blocks)
-    for k in KERNELS:
-        k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
     t0 = time.perf_counter()
     flat = list(fe.stream_sync(x))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     n_found = check_survey([h for r in flat for h in r.hits], planted)
     n_le = check_le([h for r in flat for h in r.le_hits], le_planted)
@@ -1099,9 +1205,7 @@ def flat_path(fe, n_blocks: int):
           f"({dt:.4f} s for {n_in} samples, the first blocks' warm-up "
           f"included), peak device memory {peak / 2 ** 20:.1f} MiB")
     assert len(flat) == n_blocks, len(flat)
-    for k in KERNELS:
-        want = n_blocks if k in FLAT + (LE,) else 0
-        assert launches[k.__name__] == want, (k.__name__, launches, want)
+    _want_chain(launches, n_blocks, FLAT, True)
 
     fused = list(fe.stream(x))
     d_snr, d_sym, n_sym = compare_chains(fe, flat, fused, x.shape[0])
@@ -1263,6 +1367,8 @@ def _zero_counts():
     for k in KERNELS:
         k.launches = 0
     detect_kernel.detect_words.err_launches = 0
+    LE.dist_launches = 0
+    HT.le_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1270,17 +1376,27 @@ def _zero_counts():
 def _counts():
     c = {k.__name__: k.launches for k in KERNELS}
     c[DETECT_ERR] = detect_kernel.detect_words.err_launches
+    c[LE_DIST] = LE.dist_launches
+    c[HT_LE] = HT.le_launches
     return c
 
 
-def _want_fused(counts, n_blocks, le: bool):
-    """The modes' path: the fused chain's kernels once per block, and
-    le_detect once per block where LE is on (`le`), the flat chain's and
-    the error planes not at all."""
-    on = [k.__name__ for k in FUSED + ((LE,) if le else ())]
+def _want_chain(counts, n_blocks, chain, le: bool):
+    """A path's launches: the chain's kernels (`chain`) and the hit table
+    once per block, le_detect (its step form) and the hit table's LE
+    form once per block where LE is on (`le`), no other."""
+    on = {k.__name__ for k in chain} | {HT.__name__}
+    if le:
+        on |= {LE.__name__, HT_LE}
     for name, n in counts.items():
         want = n_blocks if name in on else 0
         assert n == want, (name, counts, n_blocks)
+
+
+def _want_fused(counts, n_blocks, le: bool):
+    """The modes' path: the fused chain's kernels once per block (see
+    _want_chain)."""
+    _want_chain(counts, n_blocks, FUSED, le)
 
 
 def sniffer_phase(name: str, x, sent, sims):
@@ -1580,10 +1696,10 @@ MISSED_81 = {(0x123456, 0), (0x5A17EC, 64)}
 
 def odd_rate_phase(n_blocks: int = N_BLOCKS):
     """Phase 8b: LapSurvey at 81 Msps (the conv bank, 79 channels) over a
-    planted capture; detect_words once per block and no other kernel;
-    the observations equal to the same survey on the CPU (the plain
-    versions), every one a planted packet, every planted pair found but
-    the two the reference misses (MISSED_81).  The conv bank timed alone
+    planted capture; detect_words and hit_table once per block and no
+    other kernel; the observations equal to the same survey on the CPU
+    (the plain versions), every one a planted packet, every planted pair
+    found but the two the reference misses (MISSED_81).  The conv bank timed alone
     against its bound; then 5 Msps on the card against the CPU."""
     from gr_bluetooth_tpu_torch.ops import channelizer
     survey = LapSurvey(81e6, CENTER, block_slots=BLOCK_SLOTS)
@@ -1596,9 +1712,7 @@ def odd_rate_phase(n_blocks: int = N_BLOCKS):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts, peak = _counts(), torch.cuda.max_memory_allocated()
-    for name, n in counts.items():
-        want = n_blocks if name == "detect_words" else 0
-        assert n == want, (name, counts)
+    _want_chain(counts, n_blocks, (detect_kernel.detect_words,), False)
     cpu = LapSurvey(81e6, CENTER, block_slots=BLOCK_SLOTS, device="cpu")
     oc = list(cpu.run(x, emit_console=False))
     key = lambda o: (o.clkn, o.channel, o.lap, o.errors)  # noqa: E731
@@ -1620,7 +1734,7 @@ def odd_rate_phase(n_blocks: int = N_BLOCKS):
           f"device memory {peak / 2 ** 20:.1f} MiB")
     xb = fe.to_planes(x[: fe.block_samples])
     prof = step_profile("odd rate 81 Msps (conv bank)", fe.device_step, xb,
-                        (detect_kernel.detect_words,))
+                        ("detect_words", "hit_table"))
     c, s = fe.consts, fe.statics
     torch.backends.cudnn.allow_tf32 = True        # the guard must hold
     conv = lambda: channelizer._channelize_impl(  # noqa: E731
@@ -2265,18 +2379,24 @@ def main(argv=None) -> int:
                                   max_ac_errors=1, enable_le=True)
         x, _ = plant_capture(fe, 1, seed=9)
         xb = fe.to_planes(x[: fe.block_samples])
-        rows, words = kernel_checks(fe, xb)
+        rows, words, snr_db = kernel_checks(fe, xb)
         x_le, _, _ = plant_le_capture(fe_le, N_BLOCKS)
-        rows["le_detect"] = le_kernel_check(fe_le, (
+        words5, snr5 = block_step_inputs(
+            fe_le, fe_le.to_planes(x_le[: fe_le.block_samples]))
+        rows["le_detect"], le_hitw5 = le_kernel_check(fe_le, (
             ("phase 3's block", words),
-            ("phase 5's first block, with LE packets", block_words(
-                fe_le, fe_le.to_planes(x_le[: fe_le.block_samples])))))
+            ("phase 5's first block, with LE packets", words5)))
+        rows.update(tail_checks(fe, fe_le, words, snr_db, words5, snr5,
+                                le_hitw5))
         err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
                                             fe.consts["ac_masks"])
-        profs = (("fused", step_profile("fused chain (LE off)",
-                                        fe.fused_step, xb, FUSED)),
-                 ("flat", step_profile("flat chain (LE on)",
-                                       fe_le.device_step, xb, FLAT + (LE,))))
+        names = lambda ks: [k.__name__ for k in ks]  # noqa: E731
+        profs = (("fused", step_profile(
+                     "fused chain (LE off)", fe.fused_step, xb,
+                     names(FUSED + (HT,)))),
+                 ("flat", step_profile(
+                     "flat chain (LE on)", fe_le.device_step, xb,
+                     names(FLAT + (LE, HT)) + [HT_LE])))
         ms = time_ms(lambda: fe_le.fused_step(xb), 20)
         print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA "
               f"events, 20 steps)")
@@ -2293,8 +2413,8 @@ def main(argv=None) -> int:
         launches = main_path(survey, N_BLOCKS)
     with timed("phase 5, flat path"):
         flat_launches = flat_path(fe_le, N_BLOCKS)
-    for k in FLAT[:2] + (LE,):
-        launches[k.__name__] = flat_launches[k.__name__]
+    for name in names(FLAT[:2] + (LE,)) + [HT_LE]:
+        launches[name] = flat_launches[name]
     with timed("phase 6, small reference"):
         small_reference()
 
@@ -2331,8 +2451,9 @@ def main(argv=None) -> int:
 
     launches[DETECT_ERR] = err_launches
     out = []
-    for name in [k.__name__ for k in KERNELS] + [DETECT_ERR]:
-        source = "detect_words" if name == DETECT_ERR else name
+    for name in names(KERNELS) + [HT_LE, DETECT_ERR]:
+        source = {DETECT_ERR: "detect_words", HT_LE: "hit_table"}.get(name,
+                                                                      name)
         out.append(dict(name=name, route="cuda",
                         source=f"gr_bluetooth_tpu_torch/csrc/{source}.cu",
                         replaces=REPLACES[name], launches=launches[name],

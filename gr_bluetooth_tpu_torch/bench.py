@@ -250,7 +250,7 @@ def pfb_channelize_cost(xp_numel: int, C: int, n_out: int, M: int, Q: int):
             n_out * channelize_ops(C, M, Q), FP32_OPS)
 
 
-# le_detect's integer operations per offset (csrc/le_detect.cu): on every
+# le_detect's integer operations per offset (csrc/le_dist.cuh): on every
 # row the two funnel-shift views, the header's shift, XOR and mask, its
 # two byte indices and the preamble's mask, three table lookups, two adds
 # and the compare with max_dist; on the advertising rows also the four AA
@@ -258,16 +258,44 @@ def pfb_channelize_cost(xp_numel: int, C: int, n_out: int, M: int, Q: int):
 LE_OPS_DATA, LE_OPS_ADV = 13, 27
 
 
-def le_detect_cost(R: int, W: int, n_le: int, n_adv: int):
+def le_detect_cost(R: int, W: int, n_le: int, n_adv: int,
+                   with_dist: bool = True):
     """le_detect over R LE rows of W words, n_adv of them advertising:
     the rows' words, the row constants (index, whitening word, aa_on,
-    max_dist) and the four tables (2,560 int32) in, the hit plane
-    (R, ceil(n_le / 32)) and dist (R, n_le) out; LE_OPS_DATA or
-    LE_OPS_ADV per offset of the 32 of every output word, at the int32
-    rate."""
+    max_dist) and the four uint8 tables (2,560 bytes) in, the hit plane
+    (R, ceil(n_le / 32)) out and, with_dist, the distances (R, n_le);
+    LE_OPS_DATA or LE_OPS_ADV per offset of the 32 of every output word,
+    at the int32 rate."""
     w_le = -(-n_le // 32)
-    return (R * W * 4 + R * 20 + 2560 * 4 + R * w_le * 4 + R * n_le * 4,
+    return (R * W * 4 + R * 20 + 2560 + R * w_le * 4 +
+            (R * n_le * 4 if with_dist else 0),
             32 * w_le * ((R - n_adv) * LE_OPS_DATA + n_adv * LE_OPS_ADV),
+            INT32_OPS)
+
+
+# hit_table's integer operations (csrc/hit_table.cu): per plane word the
+# squelch word (two selects, an OR) and its AND, the popcount and its add;
+# per window word one funnel shift; per table row the epilogue (classic:
+# the LAP's shift and mask, 24 masked XORs of three words, three XORs of
+# C68, three popcounts and two adds; LE: le_dist's 27 at most)
+HT_OPS_WORD, HT_OPS_ROW = 6, 90
+
+
+def hit_table_cost(R: int, w: int, S: int, max_hits: int, ww: int, K: int,
+                   le: bool, gate: bool = True):
+    """hit_table over an (R, w) hit plane with K = min(count, max_hits)
+    hits: the plane, the squelch word constants (int64 slot, int32 mask
+    per column) and the (S, R) SNR columns it gates with, the row map,
+    the epilogue's constants (75 int32 masks, or the 2,560-byte LE tables
+    and 8 bytes of row constants per row) and the K hits' ww window words
+    in; the count, the (max_hits, 4 or 3) table and the (max_hits, ww)
+    windows out.  Operations as HT_OPS_WORD and HT_OPS_ROW, at the int32
+    rate."""
+    consts = (2560 + 8 * R + 8 * R) if le else 75 * 4
+    n_in = R * w * 4 + ((12 * w + 4 * S * R) if gate else 0) + consts + \
+        K * ww * 4
+    n_out = 4 + max_hits * (3 if le else 4) * 4 + max_hits * ww * 4
+    return (n_in + n_out, R * w * HT_OPS_WORD + K * (ww + HT_OPS_ROW),
             INT32_OPS)
 
 

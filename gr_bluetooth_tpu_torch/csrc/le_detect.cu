@@ -8,115 +8,174 @@
 // bit-exact.
 //
 // For LE row r (word row rows[r] of the (C, W) plane; symbol t at bit
-// t % 32 of word t / 32) and every offset o < n_le = n_sym - 55, with
-// v_j the symbol at o + j and F(a, k) = sum_{j<k} v_{a+j} 2^j:
-//   dist = pre[F(0, 9)]
-//        + hdr[0][F(40, 8) ^ white_lo] + hdr[1][F(48, 8) ^ white_hi]
-//        + (aa_on ? sum_k aa[k][F(8 + 8k, 8)] : 0)
-// with hdr the access-header tables on advertising rows (aa_on) and the
-// data-header tables elsewhere, and hit = dist <= max_dist[r].  Outputs:
-// the dense dist (R, n_le) int32 and the packed hit plane (R, w_le)
-// int32, bit t of word w = offset 32w + t, zero past n_le.
+// t % 32 of word t / 32) and every offset o < n_le = n_sym - 55: the
+// distance of le_dist.cuh, and hit = dist <= max_dist[r].  Outputs: the
+// packed hit plane (R, w_le) int32, bit t of word w = offset 32w + t,
+// zero past n_le; and, when `dist` is not null (a uniform branch), the
+// dense distances (R, n_le) int32.  The step passes no dist: it reads
+// only the hits (hit_table.cu recomputes a hit's distance from its
+// window with the same code).
 //
-// Design: a warp per (row, 32-offset output word), a lane per offset;
-// a block holds 8 warps of 16 consecutive words each of one row (the
-// grid's y), so the row's constants are uniform.  The warp loads the
-// three words that cover its offsets' symbols (o .. o + 63, one
-// broadcast load each); each lane takes its 64-symbol view with two
-// funnel shifts, so every field is a shift and a mask.  The four
-// distance tables (2,560 int32, 10 KB) sit in shared memory, loaded once
-// per block.  The hit word is one ballot; the lanes' dist stores are 32
-// consecutive int32 (coalesced).  Data rows (aa_on 0, a uniform branch)
-// skip the four AA lookups.
+// Design: persistent blocks of 8 warps, at most two per SM, striding
+// over warp items; an item is 30 output words of one row, and a warp's
+// first item is loaded while the block stages the tables.  An item's
+// lanes load the 32 row words that cover those words' offsets with one
+// coalesced load, and word q's three words (q, q + 1, q + 2) come from
+// broadcast shuffles (one new one per word), so no lane waits on a
+// dependent global load inside the loop.  A lane takes one offset per word: its 64-symbol view is two
+// funnel shifts, every field a shift and a mask, the tables (uint8,
+// 2,560 bytes) in shared memory, loaded once per block; the loop over
+// the item's words is unrolled so that several words' lookups are in
+// flight.  The hit word is one ballot; lane j keeps word j of the item,
+// and the item's hit words leave in one coalesced store.  Data rows
+// (aa_on 0, uniform per item) skip the four AA lookups.
 //
 // Bound on an H100 SXM (40 LE rows, 3 of them advertising, n_le =
-// 43,070 at full band): the dist plane (6.9 MB) dominates 7.3 MB moved,
-// 2.2 us at 3.35 TB/s; the arithmetic, 13 integer operations per offset
+// 43,070 at full band; gr_bluetooth_tpu_torch/bench.py:le_detect_cost):
+// the step form moves 0.43 MB (0.2 MB of words in, 0.2 MB of hits out),
+// 0.13 us at 3.35 TB/s; its arithmetic, 13 integer operations per offset
 // on a data row and 27 on an advertising row (the table lookups counted
-// as one each; gr_bluetooth_tpu_torch/bench.py:le_detect_cost), takes
-// 1.5 us at 16.75 T/s: bound by bytes.
+// as one each), 24.2 M operations, takes 1.45 us at 16.75 T/s: bound by
+// operations.  With the dense distances (6.9 MB more) it is bound by
+// bytes, 2.2 us.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "le_dist.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int WORDS_PER_WARP = 16;
-constexpr int WORDS_PER_BLOCK = WARPS * WORDS_PER_WARP;
-constexpr int N_PRE = 512, N_AA = 4 * 256, N_HDR = 2 * 256;
+constexpr int WORDS_PER_ITEM = 30;    // lanes hold 32 words: q .. q + 31
+constexpr int BLOCKS_PER_SM = 2;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+int sm_count()
+{
+    static int n[64] = {0};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64)
+        return 132;
+    if (n[dev] == 0 &&
+        cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+        n[dev] = 132;
+    return n[dev];
+}
 
 }  // namespace
 
+// A warp item's row constants and its lane's row word (q0 + lane, zero
+// past the row); all warp-uniform but the word.
+struct Item {
+    int r, q0;
+    uint32_t mine, white;
+    int max_dist;
+    bool adv;
+};
+
+__device__ __forceinline__ Item load_item(int item, int n_tiles, int lane,
+                                          const uint32_t* words, int W,
+                                          const long long* rows,
+                                          const int* white,
+                                          const float* aa_on,
+                                          const int* max_dist)
+{
+    Item it;
+    it.r = item / n_tiles;
+    it.q0 = (item - it.r * n_tiles) * WORDS_PER_ITEM;
+    const uint32_t* row = words + __ldg(rows + it.r) * W;
+    it.mine = it.q0 + lane < W ? __ldg(row + it.q0 + lane) : 0u;
+    it.white = (uint32_t)__ldg(white + it.r);
+    it.max_dist = __ldg(max_dist + it.r);
+    it.adv = __ldg(aa_on + it.r) > 0.5f;
+    return it;
+}
+
 __global__ void __launch_bounds__(THREADS)
 le_detect_kernel(const uint32_t* __restrict__ words, int W,
-                 const long long* __restrict__ rows,
+                 const long long* __restrict__ rows, int R,
                  const int* __restrict__ white,
                  const float* __restrict__ aa_on,
-                 const int* __restrict__ max_dist,
-                 const int* __restrict__ pre_dist,
-                 const int* __restrict__ aa_dist,
-                 const int* __restrict__ acc_dist,
-                 const int* __restrict__ dat_dist, int n_le, int w_le,
+                 const int* __restrict__ max_dist, const uint8_t* pre,
+                 const uint8_t* aa, const uint8_t* acc, const uint8_t* dat,
+                 int n_le, int w_le, int n_tiles,
                  uint32_t* __restrict__ hitw, int* __restrict__ dist)
 {
-    __shared__ int s_pre[N_PRE];
-    __shared__ int s_aa[N_AA];
-    __shared__ int s_acc[N_HDR];
-    __shared__ int s_dat[N_HDR];
-    for (int i = threadIdx.x; i < N_PRE; i += THREADS) s_pre[i] = pre_dist[i];
-    for (int i = threadIdx.x; i < N_AA; i += THREADS) s_aa[i] = aa_dist[i];
-    for (int i = threadIdx.x; i < N_HDR; i += THREADS) {
-        s_acc[i] = acc_dist[i];
-        s_dat[i] = dat_dist[i];
-    }
+    __shared__ __align__(16) uint8_t s_tab[le::N_TABLES];
+    const int lane = threadIdx.x & 31;
+    const int n_items = R * n_tiles, stride = gridDim.x * WARPS;
+    int item = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    // the first item's loads start before the tables' barrier, so
+    // that the two latencies overlap
+    Item it{};
+    if (item < n_items)
+        it = load_item(item, n_tiles, lane, words, W, rows, white, aa_on,
+                       max_dist);
+    le::load_tables(s_tab, pre, aa, acc, dat);
     __syncthreads();
+    const uint8_t* s_pre = s_tab;
+    const uint8_t* s_aa = s_tab + le::N_PRE;
+    const uint8_t* s_acc = s_aa + le::N_AA;
+    const uint8_t* s_dat = s_acc + le::N_HDR;
 
-    // blockIdx.y = the LE row, its per-row constants warp-uniform
-    const int r = blockIdx.y;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const uint32_t* row = words + rows[r] * W;
-    const bool adv = __ldg(aa_on + r) > 0.5f;
-    const uint32_t wh = (uint32_t)__ldg(white + r);
-    const int md = __ldg(max_dist + r);
-    const int* hdr = adv ? s_acc : s_dat;
-    int* drow = dist + (long long)r * n_le;
-    const int q0 = blockIdx.x * WORDS_PER_BLOCK + warp * WORDS_PER_WARP;
-    for (int q = q0; q < q0 + WORDS_PER_WARP && q < w_le; ++q) {
-        const uint32_t b0 = q < W ? __ldg(row + q) : 0u;
-        const uint32_t b1 = q + 1 < W ? __ldg(row + q + 1) : 0u;
-        const uint32_t b2 = q + 2 < W ? __ldg(row + q + 2) : 0u;
-        // bit j of lo / hi = symbol o + j / o + 32 + j, o = 32q + lane
-        const uint32_t lo = __funnelshift_r(b0, b1, lane);
-        const uint32_t hi = __funnelshift_r(b1, b2, lane);
-        const uint32_t h = ((hi >> 8) ^ wh) & 0xFFFFu;
-        int d = s_pre[lo & 0x1FFu] + hdr[h & 0xFFu] + hdr[256 + (h >> 8)];
-        if (adv)
-            d += s_aa[(lo >> 8) & 0xFFu] + s_aa[256 + ((lo >> 16) & 0xFFu)] +
-                 s_aa[512 + (lo >> 24)] + s_aa[768 + (hi & 0xFFu)];
-        const int o = 32 * q + lane;
-        const bool in = o < n_le;
-        if (in) drow[o] = d;
-        const uint32_t bits = __ballot_sync(0xFFFFFFFFu, in && d <= md);
-        if (lane == 0) hitw[(long long)r * w_le + q] = bits;
+    for (; item < n_items; item += stride) {
+        if (item != blockIdx.x * WARPS + (threadIdx.x >> 5))
+            it = load_item(item, n_tiles, lane, words, W, rows, white,
+                           aa_on, max_dist);
+        const uint8_t* hdr = it.adv ? s_acc : s_dat;
+        int* drow = dist != nullptr ? dist + (long long)it.r * n_le
+                                    : nullptr;
+        uint32_t out = 0u;
+        // word q0 + j reads words j, j + 1, j + 2 of the item: one new
+        // broadcast per word, the other two carried over
+        uint32_t b0 = __shfl_sync(FULL, it.mine, 0);
+        uint32_t b1 = __shfl_sync(FULL, it.mine, 1);
+        // a fixed count, unrolled: independent words in flight (words
+        // past w_le have no offset below n_le and store nothing)
+#pragma unroll 6
+        for (int j = 0; j < WORDS_PER_ITEM; ++j) {
+            const uint32_t b2 = __shfl_sync(FULL, it.mine, j + 2);
+            const int d = le::dist(b0, b1, b2, lane, it.white, it.adv,
+                                   s_pre, s_aa, hdr);
+            b0 = b1;
+            b1 = b2;
+            const int o = 32 * (it.q0 + j) + lane;
+            const bool in = o < n_le;
+            if (drow != nullptr && in)
+                drow[o] = d;
+            const uint32_t bits = __ballot_sync(FULL,
+                                                in && d <= it.max_dist);
+            if (lane == j)
+                out = bits;
+        }
+        if (lane < min(WORDS_PER_ITEM, w_le - it.q0))
+            hitw[(long long)it.r * w_le + it.q0 + lane] = out;
     }
 }
 
 extern "C" int le_detect_launch(const int* words, int W,
                                 const long long* rows, int R,
                                 const int* white, const float* aa_on,
-                                const int* max_dist, const int* pre_dist,
-                                const int* aa_dist, const int* acc_dist,
-                                const int* dat_dist, int n_le, int w_le,
+                                const int* max_dist,
+                                const unsigned char* pre,
+                                const unsigned char* aa,
+                                const unsigned char* acc,
+                                const unsigned char* dat, int n_le, int w_le,
                                 int* hitw, int* dist, void* stream)
 {
-    if (R <= 0 || R > 65535 || n_le <= 0 || w_le <= 0)
+    if (R <= 0 || n_le <= 0 || w_le <= 0)
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((w_le + WORDS_PER_BLOCK - 1) / WORDS_PER_BLOCK),
-                    (unsigned)R);
+    const int n_tiles = (w_le + WORDS_PER_ITEM - 1) / WORDS_PER_ITEM;
+    const long long n_items = (long long)R * n_tiles;
+    const long long need = (n_items + WARPS - 1) / WARPS;
+    const int grid = (int)(need < BLOCKS_PER_SM * sm_count()
+                               ? need : BLOCKS_PER_SM * sm_count());
     le_detect_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, W, rows, white, aa_on, max_dist, pre_dist,
-        aa_dist, acc_dist, dat_dist, n_le, w_le, (uint32_t*)hitw, dist);
+        (const uint32_t*)words, W, rows, R, white, aa_on, max_dist, pre, aa,
+        acc, dat, n_le, w_le, n_tiles, (uint32_t*)hitw, dist);
     return (int)cudaGetLastError();
 }

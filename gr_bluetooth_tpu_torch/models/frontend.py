@@ -44,13 +44,15 @@ stream() takes the fused chain, stream_sync() the flat one.
 All steps end in the same packed tail (_packed_tail):
 
     detect_words   packed access-code detection      [CUDA, ops/detect_kernel]
-    squelch AND on word planes, first-k hit extraction, bit-aligned window
-    gather, LAP and error count from each window (the 68 bits against
-    the A68 product, as the reference)              [torch, below]
-    LE (enable_le): le_detect on the packed words (packed hit plane and
-    dense distances)                                [CUDA, ops/detect]
-    then squelch AND on word planes, first-k extraction, the distance
-    gather, LE windows                              [torch, below]
+    hit_table      squelch AND on the word plane, first-k hit extraction,
+                   bit-aligned window gather, LAP and error count from
+                   each window (the 68 bits against the access code the
+                   LAP predicts)                     [CUDA, ops/hit_table]
+    LE (enable_le):
+    le_detect      the LE detector on the packed words, hit plane only
+                                                     [CUDA, ops/detect]
+    hit_table      its LE form: squelch, extraction, LE windows, each
+                   hit's distance from its window    [CUDA, ops/hit_table]
 
 Nothing on the step reads a value back to the host, and its shapes are
 static, so on a CUDA device each step is captured once as a CUDA graph
@@ -73,9 +75,12 @@ from ..constants import (DEFAULT_SNR_DB, SYMBOLS_AC_SHORT,
                          SYMBOLS_LE_PREAMBLE_AA, SYMBOLS_PER_SLOT)
 from ..core.le_tables import freq2index
 from ..ops import (channelizer, demod, demod_kernel, detect, detect_kernel,
-                   pfb, pfb_kernel, resample, snr)
-from ..ops.detect_kernel import popcount, u32_to_i32
-from ..utils.device import fp32_matmul, resolve_device
+                   hit_table, pfb, pfb_kernel, resample, snr)
+# the tail's plain pieces, importable here under their names
+from ..ops.hit_table import (LE_WIN_SYMBOLS, WIN_SYMBOLS,  # noqa: F401
+                             _extract_hits_packed, _gather_windows,
+                             _hit_rows, _squelch_gate_words)
+from ..utils.device import resolve_device
 from ..utils.graph import StepCache
 from ..utils.log import get_logger
 
@@ -84,8 +89,6 @@ __all__ = ["FrontEnd", "Hit", "LeHit", "BlockResult"]
 log = get_logger("frontend")
 
 LOOKAHEAD_SLOTS = 5      # max packet length
-WIN_SYMBOLS = 3200       # per-hit symbol window (>= 3125)
-LE_WIN_SYMBOLS = 512     # per-LE-hit window (>= 376 + header margin)
 _M32 = 0xFFFFFFFF
 
 
@@ -493,32 +496,6 @@ def consts_to_device(consts: dict, device) -> dict:
     return out
 
 
-def _extract_hits_packed(hitw, max_hits: int):
-    """Bit-packed (C, W) int32 hit plane -> the first max_hits set bits
-    in channel-major order, with no host sync: an inclusive prefix sum
-    of the word popcounts places rank r in its word (searchsorted), and
-    a prefix sum over that word's 32 bits places it in the word.
-
-    Returns (count, chan, off, valid); count is the total popcount, which
-    may exceed max_hits; rows r >= count are not valid."""
-    C, W = hitw.shape
-    dev = hitw.device
-    flat = hitw.reshape(-1).to(torch.int64) & _M32
-    pc = popcount(flat)
-    cum = torch.cumsum(pc, 0)
-    count = cum[-1]
-    r = torch.arange(max_hits, device=dev)
-    widx = torch.searchsorted(cum, r, right=True).clamp(max=flat.numel() - 1)
-    rank = r - (cum[widx] - pc[widx])                 # rank inside the word
-    bits = (flat[widx][:, None] >> torch.arange(32, device=dev)) & 1
-    before = torch.cumsum(bits, 1) - bits             # set bits below each
-    b = ((bits == 1) & (before == rank[:, None])).to(torch.int32).argmax(1)
-    idx = widx * 32 + b
-    valid = r < count
-    nbits = W * 32
-    return count, idx // nbits, idx % nbits, valid
-
-
 def _extract_hits(mask, max_hits: int, payload_cols):
     """Dense (C, n) mask -> the first max_hits set elements in
     channel-major order, with no host sync: an inclusive prefix sum over
@@ -560,19 +537,6 @@ def _unpack_word_rows(words, rows, n_sym: int):
     return b.reshape(sel.shape[0], -1)[:, :n_sym]
 
 
-def _squelch_gate_words(snr_db, word_s0, word_mask_a, squelch: float):
-    """Packed per-offset squelch gate: (S, C) slot SNR -> (C, W) int32
-    word planes to AND with the packed hit plane.  Word w's low `mask_a`
-    bits sit in slot s0[w], the rest in s0[w]+1; slot S mirrors S-1."""
-    S, C = snr_db.shape
-    g = snr_db.T >= squelch                            # (C, S)
-    g = torch.cat([g, g[:, -1:]], 1)                   # slot S mirrors S-1
-    g0 = g[:, word_s0.clamp(max=S)]
-    g1 = g[:, (word_s0 + 1).clamp(max=S)]
-    ma = word_mask_a[None, :]
-    return torch.where(g0, ma, 0) | torch.where(g1, ~ma, 0)
-
-
 def _word_slot_consts(n_words: int, delay_sym: int):
     """Static per-word slot indices + intra-word slot-boundary masks for
     _squelch_gate_words."""
@@ -584,26 +548,6 @@ def _word_slot_consts(n_words: int, delay_sym: int):
     mask_a = np.where(bp >= 32, np.int64(0xFFFFFFFF), (1 << bp) - 1)
     return (s0.astype(np.int32),
             mask_a.astype(np.int64).astype(np.uint32).view(np.int32))
-
-
-def _gather_windows(words, chan, off, valid, width_bits: int):
-    """(K,) channel/bit-offset -> (K, width_bits//32 + 1) int32 packed
-    symbol windows, BIT-ALIGNED to each hit's offset (bit b of word j is
-    the symbol at off + 32*j + b; words past the row read as zero, and
-    the last word's high bits are zero).  Rows that are not valid are
-    all zero."""
-    C, nw = words.shape
-    ww = width_bits // 32 + 1
-    dev = words.device
-    c = chan.clamp(0, C - 1)
-    ow = (off // 32).clamp(0, nw - 1)
-    idx = ow[:, None] + torch.arange(ww, device=dev)[None, :]
-    src = words.to(torch.int64) & _M32
-    u = src[c[:, None], idx.clamp(max=nw - 1)]
-    u = torch.where((idx < nw) & valid[:, None], u, 0)
-    nxt = torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], 1)
-    s = torch.where(valid, off % 32, 0)[:, None]
-    return u32_to_i32((u >> s) | ((nxt << (32 - s)) & _M32))
 
 
 def step_geometry(n_samples: int, Q: int, decim: int, n_sym: int,
@@ -685,43 +629,22 @@ def _packed_tail(words, snr_db, *, ac_masks, ac_a68t, ac_c68, word_s0,
                  word_mask_a, n_sym, max_ac_errors, delay_sym, squelch,
                  max_hits, max_le_hits, le_rows=None, **le_consts):
     """Both chains' tail (gr_bluetooth_tpu/models/frontend.py:750-808):
-    (C, W) packed words, (S, C) slot SNR -> the step's 7-tuple.  The
-    group delay (delay_sym, a static of every step) is built into the
-    squelch word constants."""
+    (C, W) packed words, (S, C) slot SNR -> the step's 7-tuple:
+    detect_words, then hit_table over its hit plane (squelch, extraction,
+    windows and the A68 rows in one kernel).  The group delay (delay_sym,
+    a static of every step) is built into the squelch word constants."""
     del delay_sym
     hitw, _, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
                                             max_ac_errors, ac_masks)
-    if squelch is not None:
-        hitw = hitw & _squelch_gate_words(snr_db, word_s0, word_mask_a,
-                                          squelch)
-    n_hits, chan, off, valid = _extract_hits_packed(hitw, max_hits)
-    windows = _gather_windows(words, chan, off, valid, WIN_SYMBOLS)
-    tab = _hit_rows(windows, chan, off, valid, ac_a68t, ac_c68)
+    n_hits, tab, windows = hit_table.hit_table(
+        hitw, words, None, snr_db, word_s0=word_s0, word_mask_a=word_mask_a,
+        squelch=squelch, max_hits=max_hits,
+        ac=dict(ac_a68t=ac_a68t, ac_c68=ac_c68, ac_masks=ac_masks))
     if le_rows is None:
-        return snr_db, n_hits.to(torch.int32), tab, windows, None, None, None
-    return (snr_db, n_hits.to(torch.int32), tab, windows,
+        return snr_db, n_hits, tab, windows, None, None, None
+    return (snr_db, n_hits, tab, windows,
             *_le_tail(words, snr_db, le_rows, n_sym=n_sym, squelch=squelch,
                       max_le_hits=max_le_hits, **le_consts))
-
-
-def _hit_rows(windows, chan, off, valid, ac_a68t, ac_c68):
-    """The classic hit table (K, 4) int32 [chan, offset, LAP, errors], -1
-    on rows that are not valid, from the hits' bit-aligned windows
-    (gr_bluetooth_tpu/models/frontend.py:764-776 and :793-796): the LAP
-    is symbols 38..61 = window word 1 bits 6..29, the error count the
-    mismatches of the 68 bits with the access code that the LAP bits
-    predict, A68 lap + C68 mod 2, as one float32 product (0/1 values and
-    sums of at most 25: exact at any float32 precision, run in FP32 all
-    the same)."""
-    b = (windows[:, :3, None] >> torch.arange(32, device=windows.device)) & 1
-    bits68 = b.reshape(-1, 96)[:, :68].to(torch.float32)
-    with fp32_matmul():
-        pred = torch.addmm(ac_c68, bits68[:, 38:62], ac_a68t)
-    err = (bits68 != torch.remainder(pred, 2.0)).sum(1)
-    lap = (windows[:, 1] >> 6) & 0xFFFFFF
-    return torch.where(valid[:, None],
-                       torch.stack([chan, off, lap, err], 1),
-                       -1).to(torch.int32)
 
 
 def _le_tail(words, snr_db, le_rows, *, n_sym, squelch, max_le_hits,
@@ -729,20 +652,14 @@ def _le_tail(words, snr_db, le_rows, *, n_sym, squelch, max_le_hits,
              le_word_mask_a, **le_tables):
     """The LE branch on packed planes (gr_bluetooth_tpu/models/
     frontend.py:797-808): (n_le, le_tab, le_windows).  le_detect's hit
-    plane ANDed with the packed squelch gate of the LE rows, the first
-    max_le_hits hits in row-major order (n_le counts them all), their
-    distances gathered from the dense plane, their windows."""
-    hitw, dist = detect.le_detect(words, le_rows, n_sym, le_white_word,
-                                  le_aa_on, le_max_dist, **le_tables)
-    if squelch is not None:
-        hitw = hitw & _squelch_gate_words(snr_db[:, le_rows], le_word_s0,
-                                          le_word_mask_a, squelch)
-    n_le, chan, off, valid = _extract_hits_packed(hitw, max_le_hits)
-    # rows past the count point into the last word, whose bits may lie
-    # past the n_le offsets of the dense plane
-    d = dist[chan, off.clamp(max=dist.shape[1] - 1)]
-    le_tab = torch.where(valid[:, None], torch.stack([chan, off, d], 1),
-                         -1).to(torch.int32)
-    le_windows = _gather_windows(words, le_rows[chan], off, valid,
-                                 LE_WIN_SYMBOLS)
-    return n_le.to(torch.int32), le_tab, le_windows
+    plane (hits only) into hit_table's LE form: the packed squelch gate
+    of the LE rows, the first max_le_hits hits in row-major order (n_le
+    counts them all), their windows and their distances."""
+    hitw, _ = detect.le_detect(words, le_rows, n_sym, le_white_word,
+                               le_aa_on, le_max_dist, with_dist=False,
+                               **le_tables)
+    return hit_table.hit_table(
+        hitw, words, le_rows, snr_db, word_s0=le_word_s0,
+        word_mask_a=le_word_mask_a, squelch=squelch, max_hits=max_le_hits,
+        le=dict(le_white_word=le_white_word, le_aa_on=le_aa_on,
+                **le_tables))

@@ -19,7 +19,9 @@ over dense rows.  The port has two forms:
                    kernel (csrc/le_detect.cu, a port kernel with no TPU
                    counterpart) for CUDA tensors; for CPU tensors its
                    plain version, le_detect_plain (the rows unpacked,
-                   le_detect_batch, the hits packed).
+                   le_detect_batch, the hits packed).  The step takes the
+                   hit plane alone (with_dist=False); the dense distances
+                   are for the checks.
 """
 from __future__ import annotations
 
@@ -65,13 +67,14 @@ def le_white_words(white) -> np.ndarray:
 
 
 def le_table_consts() -> dict:
-    """The distance tables as int32 arrays, keyed as the step takes them:
-    le_pre_dist (512,), le_aa_dist (4, 256), le_acc_dist and le_dat_dist
-    (2, 256) (header byte 0, byte 1)."""
-    return dict(le_pre_dist=LE_PREAMBLE_DISTANCE.astype(np.int32),
-                le_aa_dist=AA_DISTANCE.astype(np.int32),
-                le_acc_dist=np.stack(ACCESS_HEADER_DISTANCE).astype(np.int32),
-                le_dat_dist=np.stack(DATA_HEADER_DISTANCE).astype(np.int32))
+    """The distance tables as uint8 arrays (their type at the source),
+    keyed as the step takes them: le_pre_dist (512,), le_aa_dist
+    (4, 256), le_acc_dist and le_dat_dist (2, 256) (header byte 0,
+    byte 1)."""
+    return dict(le_pre_dist=LE_PREAMBLE_DISTANCE.astype(np.uint8),
+                le_aa_dist=AA_DISTANCE.astype(np.uint8),
+                le_acc_dist=np.stack(ACCESS_HEADER_DISTANCE).astype(np.uint8),
+                le_dat_dist=np.stack(DATA_HEADER_DISTANCE).astype(np.uint8))
 
 
 def le_detect_batch(bits, white, aa_on, max_dist, *, le_pre_dist,
@@ -86,6 +89,9 @@ def le_detect_batch(bits, white, aa_on, max_dist, *, le_pre_dist,
     n = T - 56 + 1
     b = bits.to(torch.int64)
     w = white.to(torch.int64)
+    le_pre_dist, le_aa_dist, le_acc_dist, le_dat_dist = (
+        t.to(torch.int32) for t in (le_pre_dist, le_aa_dist, le_acc_dist,
+                                    le_dat_dist))
 
     def field(start, nbits, dewhiten_from=None):
         v = torch.zeros((R, n), dtype=torch.int64, device=b.device)
@@ -118,10 +124,10 @@ def _check(words, rows, white_word, aa_on, max_dist, tables):
                 white_word=(white_word, torch.int32, (R,)),
                 aa_on=(aa_on, torch.float32, (R, 1)),
                 max_dist=(max_dist, torch.int32, (R, 1)),
-                le_pre_dist=(tables["le_pre_dist"], torch.int32, (512,)),
-                le_aa_dist=(tables["le_aa_dist"], torch.int32, (4, 256)),
-                le_acc_dist=(tables["le_acc_dist"], torch.int32, (2, 256)),
-                le_dat_dist=(tables["le_dat_dist"], torch.int32, (2, 256)))
+                le_pre_dist=(tables["le_pre_dist"], torch.uint8, (512,)),
+                le_aa_dist=(tables["le_aa_dist"], torch.uint8, (4, 256)),
+                le_acc_dist=(tables["le_acc_dist"], torch.uint8, (2, 256)),
+                le_dat_dist=(tables["le_dat_dist"], torch.uint8, (2, 256)))
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape or \
                 t.device != words.device:
@@ -130,7 +136,8 @@ def _check(words, rows, white_word, aa_on, max_dist, tables):
 
 
 def le_detect_plain(words, rows, n_sym: int, white_word, aa_on, max_dist,
-                    *, le_pre_dist, le_aa_dist, le_acc_dist, le_dat_dist):
+                    *, with_dist: bool = True, le_pre_dist, le_aa_dist,
+                    le_acc_dist, le_dat_dist):
     """Plain PyTorch version of le_detect (same arguments and results):
     the rows unpacked to dense symbols, le_detect_batch, the hits
     packed."""
@@ -141,7 +148,7 @@ def le_detect_plain(words, rows, n_sym: int, white_word, aa_on, max_dist,
         bits, white, aa_on, max_dist, le_pre_dist=le_pre_dist,
         le_aa_dist=le_aa_dist, le_acc_dist=le_acc_dist,
         le_dat_dist=le_dat_dist)
-    return pack_bits_words(hits), dist
+    return pack_bits_words(hits), (dist if with_dist else None)
 
 
 def _launcher():
@@ -153,7 +160,8 @@ def _launcher():
     return fn
 
 
-def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, **tables):
+def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, *,
+              with_dist: bool = True, **tables):
     """LE detection on the packed word plane.
 
     words (C, W) int32 (symbol t at bit t % 32 of word t // 32, at least
@@ -164,9 +172,11 @@ def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, **tables):
     all on the words' device -> (hitw, dist): the packed hit plane
     (R, ceil(n_le / 32)) int32, bit t of word w = offset 32w + t, zero
     past n_le = n_sym - 55 offsets; and dist (R, n_le) int32, as
-    le_detect_batch on the unpacked rows.  A CPU tensor runs the plain
-    version; a CUDA tensor launches csrc/le_detect.cu, counted in
-    le_detect.launches."""
+    le_detect_batch on the unpacked rows, or None with with_dist=False
+    (the step's form: the kernel then writes the hit plane alone).  A
+    CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/le_detect.cu, counted in le_detect.launches (the step's form)
+    or le_detect.dist_launches (with the distances)."""
     _check(words, rows, white_word, aa_on, max_dist, tables)
     n_le = n_sym - LE_SPAN + 1
     if n_le <= 0 or n_sym > 32 * words.shape[1]:
@@ -174,14 +184,15 @@ def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, **tables):
                          f"or hold no LE offset")
     if words.device.type == "cpu":
         return le_detect_plain(words, rows, n_sym, white_word, aa_on,
-                               max_dist, **tables)
+                               max_dist, with_dist=with_dist, **tables)
     if words.device.type != "cuda":
         raise ValueError(f"le_detect: unsupported device {words.device}")
     R, W = rows.shape[0], words.shape[1]
     w_le = -(-n_le // 32)
     words = words.contiguous()
     hitw = torch.empty((R, w_le), dtype=torch.int32, device=words.device)
-    dist = torch.empty((R, n_le), dtype=torch.int32, device=words.device)
+    dist = torch.empty((R, n_le), dtype=torch.int32, device=words.device) \
+        if with_dist else None
     t = [tables[k].contiguous() for k in ("le_pre_dist", "le_aa_dist",
                                           "le_acc_dist", "le_dat_dist")]
     with torch.cuda.device(words.device):
@@ -191,10 +202,15 @@ def le_detect(words, rows, n_sym: int, white_word, aa_on, max_dist, **tables):
                          aa_on.contiguous().data_ptr(),
                          max_dist.contiguous().data_ptr(),
                          *(x.data_ptr() for x in t), n_le, w_le,
-                         hitw.data_ptr(), dist.data_ptr(), stream)
+                         hitw.data_ptr(),
+                         None if dist is None else dist.data_ptr(), stream)
     cuda_build.check(rc, "le_detect")
-    le_detect.launches += 1
+    if with_dist:
+        le_detect.dist_launches += 1
+    else:
+        le_detect.launches += 1
     return hitw, dist
 
 
 le_detect.launches = 0
+le_detect.dist_launches = 0

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("pfb_snr", "demod_pack", "detect_words", "pfb_channelize",
-           "deinterleave", "le_detect")
+           "deinterleave", "le_detect", "hit_table")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

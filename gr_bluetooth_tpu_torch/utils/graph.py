@@ -46,14 +46,18 @@ __all__ = ["CompiledStep", "StepCache"]
 
 def _counters():
     """(wrapper, attribute) of every kernel launch counter."""
-    from ..ops import demod_kernel, detect, detect_kernel, pfb, pfb_kernel
+    from ..ops import (demod_kernel, detect, detect_kernel, hit_table, pfb,
+                       pfb_kernel)
     return ((pfb_kernel.pfb_snr, "launches"),
             (demod_kernel.demod_pack, "launches"),
             (detect_kernel.detect_words, "launches"),
             (detect_kernel.detect_words, "err_launches"),
             (pfb_kernel.pfb_channelize, "launches"),
             (pfb.deinterleave, "launches"),
-            (detect.le_detect, "launches"))
+            (detect.le_detect, "launches"),
+            (detect.le_detect, "dist_launches"),
+            (hit_table.hit_table, "launches"),
+            (hit_table.hit_table, "le_launches"))
 
 
 def _read_counts() -> list[int]:

@@ -11,8 +11,8 @@ Tolerances are the card's: the kernels contract multiply-adds into FMAs
 and sum in another order than the plain versions, so channel streams
 agree within 2e-5, slot SNR within 1e-3 dB, packed symbols up to one
 mismatch per 10^5 (at least one allowed), detector planes and the
-deinterleaved planes and the LE detector's hit plane and distances
-exactly.  The two chains of the step (device_step
+deinterleaved planes, the LE detector's hit plane and distances and the
+hit table's count, rows and windows exactly.  The two chains of the step (device_step
 and stream_sync: deinterleave, pfb_channelize, torch demod; stream():
 pfb_snr, demod_pack) are held to each other with the same tolerances.
 """
@@ -26,7 +26,7 @@ from gr_bluetooth_tpu_torch.models import frontend
 from gr_bluetooth_tpu_torch.models.frontend import FrontEnd
 from gr_bluetooth_tpu_torch.core import packets
 from gr_bluetooth_tpu_torch.ops import (demod_kernel, detect, detect_kernel,
-                                        pfb, pfb_kernel, snr)
+                                        hit_table, pfb, pfb_kernel, snr)
 from gr_bluetooth_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.gpu
@@ -339,7 +339,7 @@ def test_device_step_on_card_matches_cpu(fe8):
     counts = _launches()
     og = fe8.fused_step(x)
     assert _launches() == {k: c + (k in ("pfb_snr", "demod_pack",
-                                         "detect_words"))
+                                         "detect_words", "hit_table"))
                            for k, c in counts.items()}
     oc = fc.fused_step(x)
     assert og[0].is_cuda and og[2].is_cuda
@@ -359,7 +359,7 @@ def test_flat_step_on_card_matches_cpu(fe8):
     counts = _launches()
     og = fe8.device_step(x)
     assert _launches() == {k: c + (k in ("deinterleave", "pfb_channelize",
-                                         "detect_words"))
+                                         "detect_words", "hit_table"))
                            for k, c in counts.items()}
     oc = fc.device_step(x)
     torch.testing.assert_close(og[0].cpu(), oc[0], atol=1e-3, rtol=0)
@@ -589,7 +589,7 @@ def test_conv_bank_step_at_81_msps_matches_cpu(cuda):
         assert torch.backends.cudnn.allow_tf32      # restored after
         counts = _launches()
         og = fg.device_step(xb)
-        assert _launches() == {k: n + (k == "detect_words")
+        assert _launches() == {k: n + (k in ("detect_words", "hit_table"))
                                for k, n in counts.items()}
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -650,14 +650,14 @@ def test_fused_kernels_on_the_restricted_channel_set(cuda, fs):
 def test_odd_rate_stream_on_card_matches_cpu(cuda):
     """5 Msps (the conv bank, 5 channels) through stream() on the card
     against the CPU: the same hits, SNR within 1e-3 dB; detect_words
-    once per block and no other kernel."""
+    and hit_table once per block and no other kernel."""
     from gr_bluetooth_tpu_torch.models.lap_survey import LapSurvey
     gpu = LapSurvey(5e6, 2441e6, block_slots=8)
     cpu = LapSurvey(5e6, 2441e6, block_slots=8, device="cpu")
     x, planted = chip_smoke.plant_capture(gpu.fe, 2, seed=5)
     counts = _launches()
     og = gpu.run(x, emit_console=False)
-    assert _launches() == {k: n + 2 * (k == "detect_words")
+    assert _launches() == {k: n + 2 * (k in ("detect_words", "hit_table"))
                            for k, n in counts.items()}
     oc = cpu.run(x, emit_console=False)
     key = lambda o: (o.clkn, o.channel, o.lap, o.errors)  # noqa: E731
@@ -833,8 +833,8 @@ def test_launches_count_replays(cuda):
     replay adds them; stream() counts one replay per block."""
     fe = FrontEnd(8e6, 2441e6, block_slots=8)
     xb = torch.zeros((2, fe.block_samples), device=cuda)
-    fused = ("pfb_snr", "demod_pack", "detect_words")
-    flat = ("deinterleave", "pfb_channelize", "detect_words")
+    fused = ("pfb_snr", "demod_pack", "detect_words", "hit_table")
+    flat = ("deinterleave", "pfb_channelize", "detect_words", "hit_table")
     for chain, names in (("fused", fused), ("flat", flat)):
         counts = _launches()
         step = fe.compiled_step(chain)
@@ -952,14 +952,19 @@ def _le_args(fe, words):
 
 
 def _le_exact(fe, words):
-    """le_detect against its plain version on one word plane: the hit
-    plane and the distances bit for bit.  Returns the hit count."""
+    """le_detect in both forms against its plain version on one word
+    plane: the hit plane (of the step's form, hits only, and of the form
+    with the distances) and the distances bit for bit.  Returns the hit
+    count."""
     args, tables = _le_args(fe, words)
-    n = detect.le_detect.launches
+    n, nd = detect.le_detect.launches, detect.le_detect.dist_launches
     hitw, dist = detect.le_detect(*args, **tables)
+    step_hitw, none = detect.le_detect(*args, with_dist=False, **tables)
     assert detect.le_detect.launches == n + 1
+    assert detect.le_detect.dist_launches == nd + 1
     phitw, pdist = detect.le_detect_plain(*args, **tables)
     assert torch.equal(hitw, phitw) and torch.equal(dist, pdist)
+    assert none is None and torch.equal(step_hitw, phitw)
     return _popcount_diff(hitw, torch.zeros_like(hitw))
 
 
@@ -1000,7 +1005,8 @@ def test_le_detect_kernel_on_a_planted_block(cuda):
     fe = FrontEnd(80e6, 2441e6, block_slots=64, max_ac_errors=1,
                   enable_le=True)
     x, _, le_planted = chip_smoke.plant_le_capture(fe, chip_smoke.N_BLOCKS)
-    words = chip_smoke.block_words(fe, fe.to_planes(x[: fe.block_samples]))
+    words, _ = chip_smoke.block_step_inputs(
+        fe, fe.to_planes(x[: fe.block_samples]))
     assert _le_exact(fe, words) >= len(le_planted) // chip_smoke.N_BLOCKS
 
 
@@ -1021,3 +1027,115 @@ def test_le_detect_launches_once_per_replay(cuda, chain):
         chip_smoke.check_replay(chain, step(xb), want)
     assert detect.le_detect.launches == n + 3
     assert int(want[4]) >= 1
+
+
+# ------------------------------------------------------------ hit_table
+
+# the cases of tests/test_torch_hit_table.py at full band: (hit density,
+# squelch on); "last words" sets bits in every row's last 40 offsets,
+# past the detector's offsets among them
+HT_CASES = {"zero hits": (0.0, True), "count > max_hits": (0.01, True),
+            "last words": (2e-4, True), "sparse": (2e-4, True),
+            "no squelch": (2e-4, False)}
+
+
+@pytest.fixture(scope="module")
+def fe_full(cuda):
+    return FrontEnd(80e6, 2441e6, block_slots=64, max_ac_errors=1,
+                    enable_le=True)
+
+
+def _ht_exact(fe, hitw, words, snr_db, le, squelch=True):
+    """hit_table against its plain version on the same device tensors:
+    count, table and windows bit for bit, one launch counted.  Returns
+    the count."""
+    args, kw = chip_smoke.hit_table_args(fe, hitw, words, snr_db, le)
+    if not squelch:
+        kw["squelch"] = None
+    counter = "le_launches" if le else "launches"
+    n = getattr(hit_table.hit_table, counter)
+    got = hit_table.hit_table(*args, **kw)
+    assert getattr(hit_table.hit_table, counter) == n + 1
+    want = hit_table.hit_table_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return int(got[0])
+
+
+@pytest.mark.parametrize("le", [False, True])
+@pytest.mark.parametrize("case", list(HT_CASES))
+def test_hit_table_kernel_matches_plain_at_full_band(fe_full, case, le):
+    """Random hit planes of the full-band geometry (79 x 1,346 classic,
+    40 x 1,346 LE), random words and a random slot SNR (10 dB squelch:
+    slot boundaries inside words, the last words in slot S mirrored)."""
+    fe, cuda = fe_full, fe_full.device
+    c = fe.consts
+    s0 = c["le_word_s0"] if le else c["word_s0"]
+    R, w = (len(fe.le_rows) if le else 79), s0.shape[0]
+    S = fe.n_sym // 625
+    assert int(s0.max()) + 1 >= S          # words reaching slot S
+    density, squelch = HT_CASES[case]
+    r = np.random.default_rng(len(case) + 7 * le)
+    bits = r.random((R, 32 * w)) < density
+    if case == "last words":
+        bits[:, -40:] |= r.random((R, 40)) < 0.3
+    hitw = torch.from_numpy(np.packbits(bits, axis=1, bitorder="little")
+                            .view("<u4").view(np.int32).copy()).to(cuda)
+    W = -(-fe.n_sym // 32)
+    words = torch.from_numpy(r.integers(-2 ** 31, 2 ** 31, (79, W))
+                             .astype(np.int32)).to(cuda)
+    snr_db = torch.from_numpy(np.where(r.random((S, 79)) < 0.5, 4.0, 16.0)
+                              .astype(np.float32)).to(cuda)
+    n = _ht_exact(fe, hitw, words, snr_db, le, squelch)
+    max_hits = fe.max_le_hits if le else fe.max_hits
+    if case == "zero hits":
+        assert n == 0
+    elif case == "count > max_hits":
+        assert n > max_hits
+    else:
+        assert 0 < n
+
+
+def test_hit_table_kernel_on_a_planted_block(fe_full):
+    """Both forms on the tail inputs of a full-band block with classic
+    and LE advertising packets planted (chip_smoke.py phase 5's capture,
+    its first block): the classic one over detect_words' plane, the LE
+    one over le_detect's step form."""
+    fe = fe_full
+    x, _, le_planted = chip_smoke.plant_le_capture(fe, chip_smoke.N_BLOCKS)
+    words, snr_db = chip_smoke.block_step_inputs(
+        fe, fe.to_planes(x[: fe.block_samples]))
+    s, c = fe.statics, fe.consts
+    hitw, _, _ = detect_kernel.detect_words(words, s["n_sym"] - 72 + 1,
+                                            s["max_ac_errors"], c["ac_masks"])
+    assert _ht_exact(fe, hitw, words, snr_db, False) >= 10
+    args, tables = _le_args(fe, words)
+    le_hitw, _ = detect.le_detect(*args, with_dist=False, **tables)
+    assert _ht_exact(fe, le_hitw, words, snr_db, True) >= \
+        len(le_planted) // chip_smoke.N_BLOCKS
+
+
+@pytest.mark.parametrize("le", [False, True])
+def test_hit_table_launches_once_per_tail(cuda, le):
+    """Each replay of the fused and the flat step launches the classic
+    hit table once and, with LE on, its LE form once, and equals the
+    eager step."""
+    fe = FrontEnd(8e6, 2426e6, block_slots=8, max_ac_errors=1,
+                  enable_le=le)
+    x, _, _ = chip_smoke.plant_le_capture(fe, 3, le_per_block=2)
+    xb = fe.to_planes(x[: fe.block_samples])
+    for chain in ("fused", "flat"):
+        eager = fe.fused_step if chain == "fused" else fe.device_step
+        want = _clone(eager(xb))
+        step = fe.compiled_step(chain)
+        per = step.launches_per_replay
+        assert per["hit_table.launches"] == 1
+        assert per.get("hit_table.le_launches", 0) == int(le)
+        assert "le_detect.dist_launches" not in per
+        n, n_le = hit_table.hit_table.launches, hit_table.hit_table.le_launches
+        for _ in range(2):
+            chip_smoke.check_replay(chain, step(xb), want)
+        assert hit_table.hit_table.launches == n + 2
+        assert hit_table.hit_table.le_launches == n_le + 2 * le
+        assert int(want[1]) >= 1 and (not le or int(want[4]) >= 1)
