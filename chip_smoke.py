@@ -24,7 +24,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        hit_table       exact (count, table, windows): the classic form
                        over detect_words' planes of the block and of
                        phase 5's first block, the LE form over
-                       le_detect's plane of phase 5's first block
+                       le_detect's plane of phase 5's first block, both
+                       in one launch (hit_tables, the step's form); on
+                       planes of the full band at 64- and 128-slot
+                       blocks (the latter over one pass of a block) and
+                       of 8 Msps with 8-slot blocks, with no hit, one,
+                       exactly max_hits, more, and all in one block's
+                       range: each form, both in one launch, and the
+                       two forms at once on two streams
    and time each (device time per launch from a CUDA graph of 20
    launches, replayed; and per back-to-back wrapper call, host time
    included) beside the plain version and, where one PyTorch call
@@ -39,8 +46,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the flat chain with LE on and the 81 Msps conv bank, each on its
    block against its eager step, bit for bit (SNR, counts, tables and
    windows); event ms per block and device-busy share of both forms,
-   and each fused replay's device ops: their number per replay and the
-   top ten (ms and calls);
+   and each fused replay's device ops: their number per replay and
+   every op (ms and calls); it fails if a fused replay holds a memset
+   besides pfb_snr's one or an int64 fill (hit_table keeps no state)
+   or launches hit_table other than once (both tails in one launch
+   with LE on);
    then stream() over phase 4's capture with the eager ingest and the
    compiled one, in turns: the same hits, samples/s and the stage split
    (wire_encode, h2d, device_step, assemble).  From here on every path
@@ -178,8 +188,10 @@ the channelizers' DFT counts as an M-point FFT at 5 M log2 M, the
 detector as this card's LOP3 and SHF instructions
 (detect_instr_per_word), le_detect as its integer operations per offset
 (bench.le_detect_cost), hit_table as the bytes of its plane, constants
-and windows (bench.hit_table_cost); bound_frac = bound_ms / ms); the
-last line is
+and windows (bench.hit_table_cost); bound_frac = bound_ms / ms;
+hit_table's row also holds the joint launch's row ("joint", its bound
+the two tails' sum) and the launch floor, an empty kernel replayed the
+same way ("launch_floor_ms")); the last line is
 {"ok": true, "device": {...}}.
 With no CUDA device the script exits non-zero before printing any
 result.
@@ -261,8 +273,12 @@ KERNELS = FUSED + FLAT[:2] + (LE, HT)
 # own, counted apart in detect_words.err_launches
 DETECT_ERR = "detect_words_err"
 # each kernel's symbol in a profile, where it is not "<name>_kernel"
-SYMBOL = {"hit_table": "hit_table_kernel<false>",
-          HT_LE: "hit_table_kernel<true>"}
+# (both hit-table forms, alone or together, are one kernel)
+SYMBOL = {HT_LE: "hit_table_kernel"}
+# hit_table's density cases: hits that all pass the squelch, none, one,
+# exactly max_hits, 57 more, or 150 inside one block's range
+HT_DENSITIES = ("zero", "one", "exactly max_hits", "above max_hits",
+                "one block")
 REPLACES = {
     "pfb_snr": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
     "demod_pack": "gr_bluetooth_tpu/ops/pfb_kernel.py:559",
@@ -946,21 +962,163 @@ def hit_table_check(name, fe, cases):
     return row
 
 
+def tail_dict(fe, hitw, words, snr_db, le: bool) -> dict:
+    """hit_table_args as one dict of hit_table's arguments (a tail of
+    hit_tables)."""
+    args, kw = hit_table_args(fe, hitw, words, snr_db, le)
+    return dict(zip(("hitw", "words", "rows", "snr_db"), args), **kw)
+
+
+def tails_exact(label, tails, got=None):
+    """hit_table over one or two tails (dicts) in one launch (or its
+    results `got`), each tail's count, table and windows equal to the
+    plain version's.  Returns the counts."""
+    if got is None:
+        got = hit_table._run(tails)
+    counts = []
+    for t, g in zip(tails, got):
+        want = hit_table.hit_table_plain(**t)
+        torch.cuda.synchronize()
+        assert all(a.dtype == b.dtype and a.shape == b.shape and
+                   torch.equal(a, b) for a, b in zip(g, want)), label
+        counts.append(int(g[0]))
+    return counts
+
+
+def tail_inputs(fe, seed: int):
+    """Random (C, W) symbol words of fe's geometry and an (S, C) slot
+    SNR of 4 or 16 dB per slot (the 10 dB squelch then cuts words at
+    slot boundaries and mirrors slot S), on fe's device."""
+    r = np.random.default_rng(seed)
+    C, W = len(fe.bank.channels), -(-fe.n_sym // 32)
+    S = fe.n_sym // SYMBOLS_PER_SLOT
+    words = r.integers(-2 ** 31, 2 ** 31, (C, W)).astype(np.int32)
+    snr_db = np.where(r.random((S, C)) < 0.5, 4.0, 16.0).astype(np.float32)
+    return (torch.from_numpy(words).to(fe.device),
+            torch.from_numpy(snr_db).to(fe.device))
+
+
+def density_plane(fe, le: bool, density: str, snr_db, seed: int):
+    """A hit plane of fe's classic (le False) or LE tail whose hits all
+    pass the squelch of snr_db, as many as HT_DENSITIES' case says (150
+    inside the range of the cluster's block (hit_table.cluster_split)
+    where the squelch passes the most), and their number."""
+    c = fe.consts
+    s0 = c["le_word_s0"] if le else c["word_s0"]
+    ma = c["le_word_mask_a"] if le else c["word_mask_a"]
+    cols = snr_db[:, c["le_rows"]] if le else snr_db
+    gate = hit_table._squelch_gate_words(cols, s0, ma, fe.statics["squelch"])
+    R, w = gate.shape
+    on = np.flatnonzero(detect_kernel.unpack_words(gate, 32 * w).cpu()
+                        .numpy())
+    if density == "one block":
+        split = hit_table.cluster_split(R * w)
+        blocks = [on[(on >= 32 * lo) & (on < 32 * hi)] for lo, hi in
+                  (split.block_range(b, R * w) for b in range(split.blocks))]
+        on = max(blocks, key=len)
+    max_hits = fe.max_le_hits if le else fe.max_hits
+    k = min(on.size, {"zero": 0, "one": 1, "exactly max_hits": max_hits,
+                      "above max_hits": max_hits + 57,
+                      "one block": 150}[density])
+    hit = np.zeros(R * 32 * w, bool)
+    hit[np.random.default_rng(seed).choice(on, k, replace=False)] = True
+    hitw = np.packbits(hit.reshape(R, 32 * w), axis=1, bitorder="little")
+    return torch.from_numpy(hitw.view("<u4").view(np.int32).copy()).to(
+        fe.device), k
+
+
+def density_cases(fe, seed: int = 0):
+    """(label, classic tail, LE tail, hits of each) of every density
+    case on fe's geometry: both tails over one random word plane and
+    slot SNR."""
+    for j, density in enumerate(HT_DENSITIES):
+        words, snr_db = tail_inputs(fe, seed + j)
+        cp, kc = density_plane(fe, False, density, snr_db, seed + j)
+        lp, kl = density_plane(fe, True, density, snr_db, seed + 100 + j)
+        yield (density, tail_dict(fe, cp, words, snr_db, False),
+               tail_dict(fe, lp, words, snr_db, True), (kc, kl))
+
+
+def hit_cluster_checks(fes):
+    """Phase 3: hit_table's cluster kernel on HT_DENSITIES' cases of
+    each (label, front end with LE on): each form alone and both in one
+    launch, and the two forms launched at once on two streams, each
+    equal to the plain version exactly."""
+    for geo, fe in fes:
+        n = 0
+        side = (torch.cuda.Stream(), torch.cuda.Stream())
+        pending = []
+        for density, cl, le, k in density_cases(fe):
+            got = tails_exact(f"{geo} {density} classic", (cl,))
+            got += tails_exact(f"{geo} {density} LE", (le,))
+            assert got == list(k), (geo, density, got, k)
+            both = tails_exact(f"{geo} {density} joint", (cl, le))
+            assert both == got, (geo, density, both, got)
+            n += 3
+            # the two tails at once, each on its own stream, no sync
+            for t, st in zip((cl, le), side):
+                st.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(st):
+                    pending.append((t, hit_table._run((t,))))
+        torch.cuda.synchronize()
+        for t, got in pending:
+            tails_exact(f"{geo} two streams", (t,), got=got)
+        print(f"hit_table cluster ({geo}, {len(fe.bank.channels)} x "
+              f"{fe.consts['word_s0'].shape[0]} classic and "
+              f"{len(fe.le_rows)} x {fe.consts['le_word_s0'].shape[0]} LE "
+              f"words): {n} launches over {len(HT_DENSITIES)} density "
+              f"cases ({', '.join(HT_DENSITIES)}), each form alone and "
+              f"both in one launch, and {len(pending)} tails on two streams at once: all equal to "
+              f"the plain version (exact required)")
+
+
 def tail_checks(fe, fe_le, words, snr_db, words5, snr5, le_hitw5):
     """Phase 3: hit_table's two forms against the plain version: the
     classic one over detect_words' planes of phase 3's block and of
     phase 5's first block, the LE one over le_detect's plane of phase
-    5's first block, each timed on phase 5's block.  Returns their
-    rows."""
+    5's first block, each timed on phase 5's block; both in one launch
+    (the step's joint form, timed as a nested row of the classic one),
+    and the launch floor beside them.  Returns their rows."""
     det = lambda f, w: detect_kernel.detect_words(  # noqa: E731
         w, f.statics["n_sym"] - 72 + 1, f.statics["max_ac_errors"],
         f.consts["ac_masks"])[0]
-    return {
+    hitw5 = det(fe_le, words5)
+    rows = {
         "hit_table": hit_table_check("hit_table", fe, (
             ("phase 3's block", det(fe, words), words, snr_db),
-            ("phase 5's first block", det(fe, words5), words5, snr5))),
+            ("phase 5's first block", hitw5, words5, snr5))),
         HT_LE: hit_table_check(HT_LE, fe_le, (
             ("phase 5's first block", le_hitw5, words5, snr5),))}
+    cl = tail_dict(fe_le, hitw5, words5, snr5, False)
+    le = tail_dict(fe_le, le_hitw5, words5, snr5, True)
+    counts = tails_exact("joint, phase 5's first block", (cl, le))
+    cost = [hit_table_cost(*t["hitw"].shape, t["snr_db"].shape[0],
+                           t["max_hits"], hit_table_row_words(t),
+                           min(n, t["max_hits"]), t.get("le") is not None,
+                           t["squelch"] is not None)
+            for t, n in zip((cl, le), counts)]
+    joint = _timed_row(
+        lambda: hit_table.hit_tables(cl, le),
+        lambda: [hit_table.hit_table_plain(**t) for t in (cl, le)],
+        *bound(sum(c[0] for c in cost), sum(c[1] for c in cost), cost[0][2]))
+    _print_row("hit_table joint (both tails, one launch)", joint,
+               f" (counts {counts})")
+    floor = {"one_warp": graph_ms(lambda: hit_table.launch_floor(0)),
+             "one_cluster": graph_ms(lambda: hit_table.launch_floor(1, 1)),
+             "two_clusters": graph_ms(lambda: hit_table.launch_floor(1, 2))}
+    print(f"launch floor (an empty kernel, graph replay): one block of 32 "
+          f"threads {floor['one_warp']:.4f} ms; hit_table's grid, one "
+          f"cluster of {hit_table.CLUSTER} x {hit_table.THREADS} threads "
+          f"with two cluster barriers {floor['one_cluster']:.4f} ms, two "
+          f"{floor['two_clusters']:.4f} ms")
+    rows["hit_table"].update(joint=joint, launch_floor_ms=floor)
+    return rows
+
+
+def hit_table_row_words(t: dict) -> int:
+    """A tail's window words per hit."""
+    return (hit_table.WIN_SYMBOLS if t.get("le") is None
+            else hit_table.LE_WIN_SYMBOLS) // 32 + 1
 
 
 def device_events(fn, n: int):
@@ -1097,8 +1255,18 @@ def compiled_phase(fe, fe_le, xb):
             n_ops = sum(e.count for e in evs) // 5
             print(f"compiled {label}: {n_ops} device ops per replay "
                   f"(kernels, copies and memsets; profiler, 5 replays); "
-                  f"top ten")
-            print_ops(evs, 5, 10)
+                  f"every op")
+            print_ops(evs, 5, len(evs))
+            # hit_table keeps no state: the replay's one memset is
+            # pfb_snr's (it zeroes the energies its tiles add to,
+            # csrc/pfb_snr.cu), no int64 fill, and one hit_table launch
+            # per replay (both tails)
+            n_set = sum(e.count for e in evs if "memset" in e.key.lower())
+            fills = [e.key for e in evs if "FillFunctor<long" in e.key]
+            assert n_set == 5 and not fills, (label, n_set, fills)
+            n_ht = sum(e.count for e in evs if e.key.removeprefix(
+                "void ").startswith("hit_table_kernel"))
+            assert n_ht == 5, (label, n_ht)
     stream_phase()
 
 
@@ -2388,6 +2556,14 @@ def main(argv=None) -> int:
             ("phase 5's first block, with LE packets", words5)))
         rows.update(tail_checks(fe, fe_le, words, snr_db, words5, snr5,
                                 le_hitw5))
+        hit_cluster_checks((
+            ("full band", fe_le),
+            ("full band, 128-slot blocks", frontend.FrontEnd(
+                FS, CENTER, block_slots=128, max_ac_errors=1,
+                enable_le=True)),
+            ("8 Msps, 8-slot blocks", frontend.FrontEnd(
+                8e6, 2426e6, block_slots=8, max_ac_errors=1,
+                enable_le=True))))
         err_launches, _, _ = dense_detector(words, fe.statics["n_sym"],
                                             fe.consts["ac_masks"])
         names = lambda ks: [k.__name__ for k in ks]  # noqa: E731
@@ -2395,8 +2571,9 @@ def main(argv=None) -> int:
                      "fused chain (LE off)", fe.fused_step, xb,
                      names(FUSED + (HT,)))),
                  ("flat", step_profile(
-                     "flat chain (LE on)", fe_le.device_step, xb,
-                     names(FLAT + (LE, HT)) + [HT_LE])))
+                     "flat chain (LE on; hit_table: both tails, one "
+                     "launch)", fe_le.device_step, xb,
+                     names(FLAT + (LE, HT)))))
         ms = time_ms(lambda: fe_le.fused_step(xb), 20)
         print(f"fused chain (LE on) step: {ms:.4f} ms per block (CUDA "
               f"events, 20 steps)")

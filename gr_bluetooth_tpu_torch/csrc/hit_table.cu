@@ -1,4 +1,4 @@
-// hit_table: a packed hit plane -> the step's fixed-size hit table.
+// hit_table: packed hit planes -> the step's fixed-size hit tables.
 //
 // A port kernel with no TPU counterpart: the JAX package computes this
 // tail as plain jnp outside any Pallas kernel
@@ -21,347 +21,756 @@
 //      every sum at most 25); LE [r, off, dist], dist from le_dist.cuh,
 //      the code le_detect.cu runs at every offset.
 //
-// Design: a single pass of a grid, one block per 1,024-word tile of the
-// flat plane, with a decoupled look-back for the ranks.  A block takes
-// its tile in launch order (a ticket), so it waits only on blocks that
-// already run.  Its threads load four words each (one 16-byte load),
-// gate them (the gate's per-(row, slot) bits of the tile's rows staged
-// in shared memory), popcount them and scan the block; warp 0 publishes
-// the tile's count, looks back over the preceding tiles' published
-// counts 32 at a time until an inclusive prefix, and publishes the
-// tile's own.  A block whose ranks start below max_hits lists its hits'
-// bit indices and fills their rows, a warp per hit: the window's words
-// from the word row (one funnel shift each, coalesced), then the
-// epilogue from its first three words.  The last tile knows the total:
-// it writes the count and the rows past it (-1, zero windows; one
-// contiguous range each).  The look-back's ticket and tile states are
-// the wrapper's zeroed scratch, one per call.
-//
 // Bound on an H100 SXM (full band: the 79 x 1,346-word classic plane,
 // 425 KB, or the 40 x 1,346-word LE plane; max_hits 192 rows of 101
 // window words, 512 of 17 for LE): bytes, about 0.6 MB classic
 // (gr_bluetooth_tpu_torch/bench.py:hit_table_cost), 0.17 us at
-// 3.35 TB/s.  The tiles' gating and popcounts spread over the card (104
-// blocks classic, 53 LE); what is left is latency: the ticket, the
-// look-back's chain of L2 round trips and a hit's dependent window
-// loads.
+// 3.35 TB/s.  In practice it is latency: the plane's ranks are a prefix
+// sum over the whole plane, and each listed hit then needs dependent
+// loads of its window.
+//
+// Design: one thread-block cluster per tail, no scratch.  The cluster's
+// CLUSTER = 16 blocks of 1,024 threads (the non-portable size, which
+// beat the portable 8 on an H100 SXM) each take a contiguous 1/16 of the
+// flat plane (ops/hit_table.py:cluster_split).  Within a block a warp
+// takes 256 consecutive words, lane l the four from 4 l and the four from
+// 128 + 4 l of them, each one 16-byte load, so every load of the plane
+// is coalesced (one pass of the block covers 8,192 words; a longer
+// range loops).
+//   Prologue, one round of loads (LE: two, its SNR columns through the
+// row map): the thread's words, and into shared memory each column's
+// squelch slot and mask, the squelch bit of each (row, slot) of the
+// block's rows, their row map and, for LE, their constants and the
+// distance tables (classic: the masks).
+//   Ranks: the gated words' popcounts are scanned within the lane, over
+// the lanes (one shuffle scan, the two halves' counts packed) and over
+// the warps (one shuffle scan), which gives each word its rank within
+// the block and the block's count (a warp with no set bit skips its
+// scan, and a zero word its gate).  The blocks' counts then go through
+// distributed shared memory: once every block of the cluster has
+// started (a first cluster barrier, arrived at on entry, its wait hidden
+// behind the prologue and the scan), each block writes its count into
+// every block's shared memory (map_shared_rank) and arrives at a second
+// one; while that is pending it lists its hits of block rank below
+// max_hits and each warp gathers its first hit's window and row into
+// registers; after the wait, every warp reads the 16 counts locally
+// for the block's base and the total.  That replaces a grid-wide
+// look-back (its ticket, its published tile states, the per-call zeroed
+// scratch and the memset that cleared it).
+//   Code size is time here: the step runs this kernel after the
+// channelizer, whose code has displaced this one's from the SMs'
+// instruction caches, so the body is one copy for both tails (the
+// cluster's index picks the tail's parameters) and not one per tail.
+//   Epilogue: the hits of rank base + k < max_hits are written, a warp
+// per hit: the window's words in one round of loads (a lane per word,
+// the next word by a shuffle, one funnel shift), the row from its first
+// three words.  Every block knows the total, so the count and the rows
+// past it (-1, zero windows) are split over the cluster's blocks.  A
+// block may own no word (a plane of fewer than 16 x 1,024 words): it
+// still writes its count and joins the barriers, so no block leaves
+// before every count has reached it.
+//
+// One launch serves one tail or two: the grid is one cluster per tail,
+// and the cluster's index selects the tail's plane and epilogue, so the
+// classic and the LE tail of a step run side by side on different SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "le_dist.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 4 * THREADS;     // plane words per block
+constexpr int REG = 8;                // words per lane and pass
+constexpr int WARP_WORDS = 32 * REG;  // 256
+constexpr int PASS = WARPS * WARP_WORDS;  // 8,192 words per block pass
+constexpr int WMAX = 4;               // window words per lane (ww <= 128)
+constexpr int MAX_TAILS = 2;
+constexpr int CLUSTER = 16;           // blocks per tail
 constexpr unsigned FULL = 0xFFFFFFFFu;
-// a tile's published state: flag in the high word, count in the low
-constexpr unsigned long long AGGREGATE = 1ull << 32, INCLUSIVE = 2ull << 32;
 
-struct Plane {
-    const uint32_t* hitw;
-    int n, w;                         // R * w words, w per row
-    const uint8_t* gate;              // (rows r0.., S + 1) shared, or null
-    int r0, s1;                       // first gate row; S + 1
-    const long long* s0;
-    const int* ma;
+}  // namespace
+
+// One tail's arguments (ops/hit_table.py:_Tail mirrors this layout).
+struct Tail {
+    const uint32_t* hitw;             // (R, w) hit plane
+    const uint32_t* words;            // (C, W) symbol words
+    const long long* rows;            // (R,) word row and SNR column, or null
+    const float* snr;                 // (S, Cs) slot SNR, strides st_s, st_c
+    const long long* s0;              // (w,) squelch slot of each column
+    const int* ma;                    // (w,) its mask
+    const int* masks;                 // classic: 75 words; null for LE
+    const int* white;                 // LE: (R,) whitening words
+    const float* aa_on;               // LE: (R,) advertising rows
+    const uint8_t* pre;               // LE: the distance tables
+    const uint8_t* aa;
+    const uint8_t* acc;
+    const uint8_t* dat;
+    int* count;                       // () int32
+    int* tab;                         // (max_hits, 4 or 3) int32
+    uint32_t* win;                    // (max_hits, ww) int32
+    int R, w, W, S, Cs, st_s, st_c, use_gate, max_hits, ww;
+    int per;                          // words per block
+    float squelch;
 };
 
-// The squelch word of (row r, column col).
-__device__ __forceinline__ uint32_t gate_word(const Plane& P, int r,
-                                              int col)
+struct Tails {
+    Tail t[MAX_TAILS];
+};
+
+namespace {
+
+// A tail's dynamic shared memory, in this order: the listed hits' bit
+// indices (int, max_hits); for the nr rows a block's range can touch
+// (block_rows), the row map (int; with rows) and, for LE, each row's
+// whitening word (uint32); with the gate each column's mask (uint32, w)
+// and slot (uint16, w) and the squelch bit of each (slot, row) (uint8,
+// (S + 1) x nr); for LE each row's advertising flag (uint8).
+struct Smem {
+    int* list;
+    int* rows;
+    uint32_t* white;
+    uint32_t* ma;
+    uint16_t* a;
+    uint8_t* bits;
+    uint8_t* adv;
+};
+
+__host__ __device__ inline int block_rows(const Tail& t)
 {
-    const long long s = __ldg(P.s0 + col);
-    const int S = P.s1 - 1;
-    const int a = (int)(s < S ? s : S);
-    const int b = (int)(s + 1 < S ? s + 1 : S);
-    const uint32_t ma = (uint32_t)__ldg(P.ma + col);
-    const uint8_t* g = P.gate + (r - P.r0) * P.s1;
-    return (g[a] ? ma : 0u) | (g[b] ? ~ma : 0u);
+    const int r = (t.per - 1) / t.w + 2;
+    return r < t.R ? r : t.R;
 }
 
-// The four words of flat index i0 (a multiple of 4), zero past n, gated.
-__device__ __forceinline__ void load4(const Plane& P, int i0, uint32_t v[4])
+__host__ __device__ inline size_t smem_layout(const Tail& t, char* base,
+                                              Smem* m)
 {
-    if (i0 + 3 < P.n) {
-        const uint4 t = __ldg(reinterpret_cast<const uint4*>(P.hitw + i0));
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    } else {
+    const bool le = t.masks == nullptr;
+    const size_t nr = (size_t)block_rows(t);
+    size_t o = 0;
+    auto take = [&](size_t bytes) {
+        char* p = base != nullptr ? base + o : nullptr;
+        o += (bytes + 3) / 4 * 4;
+        return p;
+    };
+    Smem s;
+    s.list = reinterpret_cast<int*>(take((size_t)t.max_hits * 4));
+    s.rows = reinterpret_cast<int*>(take(t.rows != nullptr ? nr * 4 : 0));
+    s.white = reinterpret_cast<uint32_t*>(take(le ? nr * 4 : 0));
+    s.ma = reinterpret_cast<uint32_t*>(take(t.use_gate ? (size_t)t.w * 4
+                                                       : 0));
+    s.a = reinterpret_cast<uint16_t*>(take(t.use_gate ? (size_t)t.w * 2
+                                                      : 0));
+    s.bits = reinterpret_cast<uint8_t*>(
+        take(t.use_gate ? nr * (t.S + 1) : 0));
+    s.adv = reinterpret_cast<uint8_t*>(take(le ? nr : 0));
+    if (m != nullptr)
+        *m = s;
+    return o;
+}
+
+// Word m of a lane in a pass: half m / 4 of the warp's 256 words, four
+// words per lane (one 16-byte load), lanes side by side.
+__device__ __forceinline__ int word_of(int first, int m)
+{
+    return first + 128 * (m >> 2) + (m & 3);
+}
+
+// The thread's words of one pass (its first word `first`, a multiple of
+// four), zero from `end` on.
+__device__ __forceinline__ void load_pass(const uint32_t* hitw, int first,
+                                          int end, uint32_t v[REG])
+{
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-            v[j] = i0 + j < P.n ? __ldg(P.hitw + i0 + j) : 0u;
-    }
-    if (P.gate == nullptr || i0 >= P.n)
-        return;
-    int r = i0 / P.w, col = i0 - r * P.w;
+    for (int q = 0; q < REG / 4; ++q) {
+        const int i = first + 128 * q;
+        if (i + 3 < end) {
+            const uint4 t = *reinterpret_cast<const uint4*>(hitw + i);
+            v[4 * q] = t.x;
+            v[4 * q + 1] = t.y;
+            v[4 * q + 2] = t.z;
+            v[4 * q + 3] = t.w;
+        } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        if (col == P.w) {
-            col = 0;
-            ++r;
+            for (int j = 0; j < 4; ++j)
+                v[4 * q + j] = i + j < end ? hitw[i + j] : 0u;
         }
-        if (i0 + j < P.n)
-            v[j] &= gate_word(P, r, col);
-        ++col;
     }
 }
 
-// Exclusive scan of x over the warp; *total gets the warp's sum.
-__device__ __forceinline__ int warp_exclusive(int x, int lane, int* total)
+// Gate the words of load_pass in place (the block's nr rows from r0);
+// a zero word (past end, and most of them) needs no gate.
+__device__ __forceinline__ void gate_pass(const Tail& T, const Smem& M,
+                                          int r0, int nr, int first,
+                                          uint32_t v[REG])
 {
-    int s = x;
+    if (!T.use_gate)
+        return;
+#pragma unroll
+    for (int q = 0; q < REG / 4; ++q) {
+        const uint32_t any = v[4 * q] | v[4 * q + 1] | v[4 * q + 2] |
+                             v[4 * q + 3];
+        if (any == 0u)
+            continue;
+        const int i = first + 128 * q;
+        int r = i / T.w, col = i - r * T.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            uint32_t& x = v[4 * q + j];
+            if (x != 0u) {
+                const uint8_t* g = M.bits + (r - r0);
+                const int a = M.a[col];
+                const int b = a + 1 < T.S ? a + 1 : T.S;
+                const uint32_t k = M.ma[col];
+                x &= (g[a * nr] ? k : 0u) | (g[b * nr] ? ~k : 0u);
+            }
+            if (++col == T.w) {
+                col = 0;
+                ++r;
+            }
+        }
+    }
+}
+
+// Inclusive scan of x over the warp.
+__device__ __forceinline__ unsigned warp_inclusive(unsigned x, int lane)
+{
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(FULL, s, d);
+        const unsigned t = __shfl_up_sync(FULL, x, d);
         if (lane >= d)
-            s += t;
+            x += t;
     }
-    *total = __shfl_sync(FULL, s, 31);
-    return s - x;
+    return x;
 }
 
-__device__ __forceinline__ void publish(unsigned long long* status, int t,
-                                        unsigned long long flag, int count)
+// The ranks of a pass within its warp: ex[m] = the set bits of the
+// warp's words before word m of this lane (word_of); returns the warp's
+// total.  The two halves' lane counts share one scan (16 bits each: a
+// half's warp total is at most 4,096).
+__device__ __forceinline__ int warp_ranks(const uint32_t v[REG], int lane,
+                                          int ex[REG])
 {
-    atomicExch(status + t, flag | (unsigned)count);
-}
-
-// The exclusive prefix of tile t (t > 0): warp 0 reads the states of the
-// 32 tiles before a window end, waiting for each to be published, and
-// sums them back to the nearest inclusive one.
-__device__ __forceinline__ int look_back(const unsigned long long* status,
-                                         int t, int lane)
-{
-    int prefix = 0;
-    for (int end = t - 1;; end -= 32) {
-        const int p = end - lane;
-        unsigned long long s = INCLUSIVE;         // before tile 0: 0
-        if (p >= 0) {
-            do {
-                s = *reinterpret_cast<const volatile unsigned long long*>(
-                    status + p);
-            } while ((s >> 32) == 0);
+    unsigned c[REG / 4];
+    uint32_t any = 0u;
+#pragma unroll
+    for (int q = 0; q < REG / 4; ++q) {
+        int run = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            ex[4 * q + j] = run;
+            run += __popc(v[4 * q + j]);
+            any |= v[4 * q + j];
         }
-        const unsigned incl = __ballot_sync(FULL, s >= INCLUSIVE);
-        const int stop = incl ? __ffs(incl) - 1 : 31;
-        prefix += __reduce_add_sync(FULL, lane <= stop ? (int)(unsigned)s
-                                                       : 0);
-        if (incl)
-            return prefix;
+        c[q] = (unsigned)run;
     }
+    if (!__any_sync(FULL, any != 0u))     // the common case: no hit
+        return 0;
+    static_assert(REG == 8, "two halves per pass");
+    const unsigned inc = warp_inclusive(c[0] | c[1] << 16, lane);
+    const unsigned tot = __shfl_sync(FULL, inc, 31);
+    const int e0 = (int)(inc & 0xFFFFu) - (int)c[0];
+    const int e1 = (int)(tot & 0xFFFFu) + (int)(inc >> 16) - (int)c[1];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        ex[j] += e0;
+        ex[4 + j] += e1;
+    }
+    return (int)(tot & 0xFFFFu) + (int)(tot >> 16);
+}
+
+// The block's exclusive scan of the warps' totals: returns the warp's
+// base; *total gets the block's sum.  Two barriers.
+__device__ __forceinline__ int block_scan(int x, int lane, int warp,
+                                          int* s_warp, int* total)
+{
+    __syncwarp();               // the warp has read the last scan's base
+    if (lane == 0)
+        s_warp[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        const int v = s_warp[lane];
+        const int inc = (int)warp_inclusive((unsigned)v, lane);
+        s_warp[lane] = inc - v;
+        if (lane == 31)
+            s_warp[WARPS] = inc;
+    }
+    __syncthreads();
+    *total = s_warp[WARPS];
+    return s_warp[warp];
+}
+
+// The set bits of the pass's words into list by rank (rank of word m's
+// first bit: base + ex[m]) while below limit.
+__device__ __forceinline__ void list_pass(const uint32_t v[REG], int first,
+                                          const int ex[REG], int base,
+                                          int limit, int* list)
+{
+#pragma unroll
+    for (int m = 0; m < REG; ++m) {
+        uint32_t x = v[m];
+        int rank = base + ex[m];
+        while (x != 0u && rank < limit) {
+            list[rank] = word_of(first, m) * 32 + (__ffs(x) - 1);
+            x &= x - 1u;
+            ++rank;
+        }
+    }
+}
+
+// Elements [0, m) of p set to x, this block's share of the cluster's.
+template <typename V>
+__device__ __forceinline__ void fill_share(V* p, int m, V x, int b, int nb)
+{
+    const int share = (m + nb - 1) / nb;
+    const int lo = share * b;
+    const int hi = lo + share < m ? lo + share : m;
+    for (int i = lo + (int)threadIdx.x; i < hi; i += THREADS)
+        p[i] = x;
+}
+
+// One hit's window (bit-aligned, a lane per word: o[j] is word
+// 32 j + lane) and its table row, from the list entry idx.
+struct HitRow {
+    uint32_t o[WMAX];
+    int t0, t1, t2, t3;
+};
+
+__device__ __forceinline__ HitRow hit_row(const Tail& T, const Smem& M,
+                                          const uint8_t* s_tab,
+                                          const uint32_t* s_mask, int r0,
+                                          int idx, int lane, bool le)
+{
+    HitRow h;
+    const int i = idx >> 5, sh = idx & 31;
+    const int r = i / T.w, col = i - r * T.w;
+    const uint32_t* src = T.words +
+        (long long)(T.rows != nullptr ? M.rows[r - r0] : r) * T.W;
+    uint32_t u[WMAX];
+#pragma unroll
+    for (int j = 0; j < WMAX; ++j) {
+        const int x = 32 * j + lane;
+        u[j] = x < T.ww && col + x < T.W ? src[col + x] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < WMAX; ++j) {
+        const uint32_t up = __shfl_down_sync(FULL, u[j], 1);
+        const uint32_t wrap = __shfl_sync(FULL, j + 1 < WMAX ? u[j + 1]
+                                                             : 0u, 0);
+        h.o[j] = __funnelshift_r(u[j], lane < 31 ? up : wrap, sh);
+    }
+    const uint32_t w0 = __shfl_sync(FULL, h.o[0], 0);
+    const uint32_t w1 = __shfl_sync(FULL, h.o[0], 1);
+    const uint32_t w2 = __shfl_sync(FULL, h.o[0], 2);
+    h.t0 = r;
+    h.t1 = 32 * col + sh;
+    if (le) {
+        const bool adv = M.adv[r - r0] != 0;
+        h.t2 = le::dist(w0, w1, w2, 0, M.white[r - r0], adv, s_tab,
+                        s_tab + le::N_PRE,
+                        s_tab + le::N_PRE + le::N_AA +
+                            (adv ? 0 : le::N_HDR));
+        h.t3 = 0;
+    } else {
+        const uint32_t lap = (w1 >> 6) & 0xFFFFFFu;
+        const bool on = lane < 24 && ((lap >> lane) & 1u);
+        const uint32_t p0 = __reduce_xor_sync(FULL,
+                                              on ? s_mask[3 * lane] : 0u);
+        const uint32_t p1 = __reduce_xor_sync(
+            FULL, on ? s_mask[3 * lane + 1] : 0u);
+        const uint32_t p2 = __reduce_xor_sync(
+            FULL, on ? s_mask[3 * lane + 2] : 0u);
+        h.t2 = (int)lap;
+        h.t3 = __popc(w0 ^ p0 ^ s_mask[72]) + __popc(w1 ^ p1 ^ s_mask[73]) +
+               __popc((w2 ^ p2 ^ s_mask[74]) & 0xFu);
+    }
+    return h;
+}
+
+__device__ __forceinline__ void store_row(const Tail& T, const HitRow& h,
+                                          int rank, int lane, bool le)
+{
+    uint32_t* wrow = T.win + (long long)rank * T.ww;
+#pragma unroll
+    for (int j = 0; j < WMAX; ++j)
+        if (32 * j + lane < T.ww)
+            wrow[32 * j + lane] = h.o[j];
+    if (lane == 0) {
+        int* trow = T.tab + (long long)rank * (le ? 3 : 4);
+        trow[0] = h.t0;
+        trow[1] = h.t1;
+        trow[2] = h.t2;
+        if (!le)
+            trow[3] = h.t3;
+    }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed()
+{
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive()
+{
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait()
+{
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The block's passes after the first (ranges over 8,192 words: planes
+// over 16 x 8,192 words, such as the full band's at 128-slot blocks):
+// their gated hits.
+__device__ __forceinline__ int later_count(const Tail& T, const Smem& M,
+                                           int r0, int nr, int lo, int hi,
+                                           int* s_warp)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int more = 0;
+    for (int p0 = lo + PASS; p0 < hi; p0 += PASS) {
+        uint32_t u[REG];
+        const int f = p0 + warp * WARP_WORDS + 4 * lane;
+        load_pass(T.hitw, f, hi, u);
+        gate_pass(T, M, r0, nr, f, u);
+#pragma unroll
+        for (int m = 0; m < REG; ++m)
+            more += __popc(u[m]);
+    }
+    int tot;
+    block_scan(__reduce_add_sync(FULL, more), lane, warp, s_warp, &tot);
+    return tot;
+}
+
+// Their hits into list from rank `run` on while below n_list.
+__device__ __forceinline__ void later_list(const Tail& T, const Smem& M,
+                                           int r0, int nr, int lo, int hi,
+                                           int run, int n_list, int* s_warp)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int p0 = lo + PASS; p0 < hi && run < n_list; p0 += PASS) {
+        uint32_t u[REG];
+        int eu[REG], tot;
+        const int f = p0 + warp * WARP_WORDS + 4 * lane;
+        load_pass(T.hitw, f, hi, u);
+        gate_pass(T, M, r0, nr, f, u);
+        const int wb = block_scan(warp_ranks(u, lane, eu), lane, warp,
+                                  s_warp, &tot);
+        list_pass(u, f, eu, run + wb, n_list, M.list);
+        run += tot;
+        __syncthreads();                               // s_warp reused
+    }
+}
+
+// A warp's hits after its first (more than 32 in one block).
+__device__ __forceinline__ void later_hit(const Tail& T, const Smem& M,
+                                          const uint8_t* s_tab,
+                                          const uint32_t* s_mask, int r0,
+                                          int idx, int rank, int lane,
+                                          bool le)
+{
+    store_row(T, hit_row(T, M, s_tab, s_mask, r0, idx, lane, le), rank,
+              lane, le);
 }
 
 }  // namespace
 
-template <bool LE>
-__global__ void __launch_bounds__(THREADS)
-hit_table_kernel(const uint32_t* __restrict__ hitw, int R, int w,
-                 const uint32_t* __restrict__ words, int W,
-                 const long long* __restrict__ rows,
-                 const float* __restrict__ snr, int S, int st_s, int st_c,
-                 const long long* __restrict__ s0,
-                 const int* __restrict__ ma, float squelch, int use_gate,
-                 int max_hits, int ww, const int* __restrict__ masks,
-                 const int* __restrict__ white,
-                 const float* __restrict__ aa_on, const uint8_t* pre,
-                 const uint8_t* aa, const uint8_t* acc, const uint8_t* dat,
-                 unsigned long long* __restrict__ state, int n_tiles,
-                 int* __restrict__ count, int* __restrict__ tab,
-                 uint32_t* __restrict__ win)
+__global__ void __launch_bounds__(THREADS, 1)
+hit_table_kernel(const __grid_constant__ Tails tails)
 {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ __align__(16) uint8_t s_tab[LE ? le::N_TABLES : 4];
+    extern __shared__ __align__(16) char smem[];
+    __shared__ __align__(16) uint8_t s_tab[le::N_TABLES];
     __shared__ uint32_t s_mask[75];
-    __shared__ int s_warp[WARPS];
-    __shared__ int s_t, s_agg, s_prefix;
+    __shared__ int s_warp[WARPS + 1];
+    __shared__ int s_counts[CLUSTER];  // every block's count, by rank
 
+    // the first cluster barrier's arrive: its wait, before the first
+    // store to another block's shared memory, knows every block started
+    cluster_arrive_relaxed();
+    cg::cluster_group cluster = cg::this_cluster();
+    const int b = (int)cluster.block_rank();
+    const Tail& T = tails.t[blockIdx.x / CLUSTER];
+    const bool le = T.masks == nullptr;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    int* list = reinterpret_cast<int*>(smem);          // max_hits
-    uint8_t* gsh = reinterpret_cast<uint8_t*>(list + max_hits);
-    unsigned long long* status = state + 1;
+    const int n = T.R * T.w;
+    Smem M;
+    smem_layout(T, smem, &M);
 
-    // the tile, in launch order
-    if (tid == 0)
-        s_t = (int)atomicAdd(reinterpret_cast<unsigned*>(state), 1u);
-    __syncthreads();
-    const int t = s_t;
-    const int n = R * w;
-    const int i_first = t * TILE;
-    Plane P{hitw, n, w, nullptr, i_first / w, S + 1, s0, ma};
-    if (use_gate) {
-        // the gate bits of the tile's rows
-        const int r_end = (min(i_first + TILE, n) - 1) / w + 1;
-        for (int i = tid; i < (r_end - P.r0) * (S + 1); i += THREADS) {
-            const int dr = i / (S + 1), s = i - dr * (S + 1);
-            const long long r = P.r0 + dr;
-            const long long c = rows != nullptr ? rows[r] : r;
-            const long long slot = s < S ? s : S - 1;
-            gsh[i] = snr[slot * st_s + c * st_c] >= squelch;
-        }
-        P.gate = gsh;
-        __syncthreads();
-    }
+    // the block's words [lo, hi) in rows r0 to r1; the thread's first
+    // word of pass 0
+    const int lo = min(b * T.per, n), hi = min(lo + T.per, n);
+    const int r0 = lo / T.w, nr = lo < hi ? (hi - 1) / T.w - r0 + 1 : 0;
+    const int first = lo + warp * WARP_WORDS + 4 * lane;
 
-    // ---- the tile's gated words and their ranks within it
-    const int i0 = i_first + 4 * tid;
-    uint32_t v[4];
-    load4(P, i0, v);
-    const int c = __popc(v[0]) + __popc(v[1]) + __popc(v[2]) + __popc(v[3]);
-    int wsum;
-    int ex = warp_exclusive(c, lane, &wsum);
-    if (lane == 0)
-        s_warp[warp] = wsum;
-    __syncthreads();
-    if (warp == 0) {
-        int agg;
-        const int x = lane < WARPS ? s_warp[lane] : 0;
-        const int e = warp_exclusive(x, lane, &agg);
-        if (lane < WARPS)
-            s_warp[lane] = e;
-        // ---- the tile's first rank: decoupled look-back
-        int prefix = 0;
-        if (t == 0) {
-            if (lane == 0)
-                publish(status, 0, INCLUSIVE, agg);
-        } else {
-            if (lane == 0)
-                publish(status, t, AGGREGATE, agg);
-            prefix = look_back(status, t, lane);
-            if (lane == 0)
-                publish(status, t, INCLUSIVE, prefix + agg);
-        }
-        if (lane == 0) {
-            s_agg = agg;
-            s_prefix = prefix;
-        }
-    }
-    __syncthreads();
-    ex += s_warp[warp];
-    const int first = s_prefix, agg = s_agg;
-
-    // ---- the tile's hits of rank < max_hits: their rows
-    const int n_mine = min(agg, max(0, max_hits - first));
-    if (n_mine > 0) {                                  // block-uniform
-        int rank = first + ex;
+    // ---- prologue: every load in flight before the first shared store
+    // (a store waits for its load, and the next load would wait behind
+    // it): the words, then the column constants (KC per thread) and the
+    // squelch SNR of the block's (row, slot) pairs (KB per thread; LE
+    // through the row map, a dependent load), the row constants, the
+    // tables; wider planes loop after
+    constexpr int KC = 3, KB = 2;
+    uint32_t v[REG];
+    load_pass(T.hitw, first, hi, v);
+    const int s1 = T.S + 1, n_bits = T.use_gate ? nr * s1 : 0;
+    long long cs0[KC];
+    uint32_t cma[KC];
+    long long bc[KB];
+    float sn[KB];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            uint32_t x = v[j];
-            while (x != 0u && rank < max_hits) {
-                list[rank - first] = (i0 + j) * 32 + (__ffs(x) - 1);
-                x &= x - 1u;
-                ++rank;
-            }
-        }
-        if constexpr (LE)
-            le::load_tables(s_tab, pre, aa, acc, dat);
-        else if (tid < 75)
-            s_mask[tid] = (uint32_t)masks[tid];
-        __syncthreads();
-        for (int k = warp; k < n_mine; k += WARPS) {
-            const int idx = list[k];
-            const int i = idx >> 5, sh = idx & 31;
-            const int r = i / w, col = i - r * w;
-            const int off = 32 * col + sh;
-            const uint32_t* src = words +
-                (rows != nullptr ? rows[r] : (long long)r) * W;
-            uint32_t* wrow = win + (long long)(first + k) * ww;
-            uint32_t w0 = 0u, w1 = 0u, w2 = 0u;
-            for (int j0 = 0; j0 < ww; j0 += 32) {
-                const int j = j0 + lane;
-                const uint32_t u = j < ww && col + j < W
-                                       ? __ldg(src + col + j) : 0u;
-                const uint32_t nx = j + 1 < ww && col + j + 1 < W
-                                        ? __ldg(src + col + j + 1) : 0u;
-                const uint32_t o = __funnelshift_r(u, nx, sh);
-                if (j < ww)
-                    wrow[j] = o;
-                if (j0 == 0) {
-                    w0 = __shfl_sync(FULL, o, 0);
-                    w1 = __shfl_sync(FULL, o, 1);
-                    w2 = __shfl_sync(FULL, o, 2);
-                }
-            }
-            if constexpr (LE) {
-                int* trow = tab + (long long)(first + k) * 3;
-                const bool adv = __ldg(aa_on + r) > 0.5f;
-                const int d = le::dist(
-                    w0, w1, w2, 0, (uint32_t)__ldg(white + r), adv, s_tab,
-                    s_tab + le::N_PRE,
-                    s_tab + le::N_PRE + le::N_AA + (adv ? 0 : le::N_HDR));
-                if (lane == 0) {
-                    trow[0] = r;
-                    trow[1] = off;
-                    trow[2] = d;
-                }
-            } else {
-                int* trow = tab + (long long)(first + k) * 4;
-                const uint32_t lap = (w1 >> 6) & 0xFFFFFFu;
-                const bool on = lane < 24 && ((lap >> lane) & 1u);
-                const uint32_t p0 = __reduce_xor_sync(
-                    FULL, on ? s_mask[3 * lane] : 0u);
-                const uint32_t p1 = __reduce_xor_sync(
-                    FULL, on ? s_mask[3 * lane + 1] : 0u);
-                const uint32_t p2 = __reduce_xor_sync(
-                    FULL, on ? s_mask[3 * lane + 2] : 0u);
-                const int err = __popc(w0 ^ p0 ^ s_mask[72]) +
-                                __popc(w1 ^ p1 ^ s_mask[73]) +
-                                __popc((w2 ^ p2 ^ s_mask[74]) & 0xFu);
-                if (lane == 0) {
-                    trow[0] = r;
-                    trow[1] = off;
-                    trow[2] = (int)lap;
-                    trow[3] = err;
-                }
-            }
+    for (int k = 0; k < KC; ++k) {
+        const int c = tid + k * THREADS;
+        const bool on = T.use_gate && c < T.w;
+        cs0[k] = on ? T.s0[c] : 0;
+        cma[k] = on ? (uint32_t)T.ma[c] : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const int i = tid + k * THREADS, dr = i % max(nr, 1);
+        bc[k] = i >= n_bits ? 0
+              : T.rows != nullptr ? T.rows[r0 + dr] : r0 + dr;
+    }
+    const bool row_t = tid < nr;
+    const int row_c = T.rows != nullptr && row_t
+                          ? (int)T.rows[r0 + tid] : 0;
+    const uint32_t white = le && row_t ? (uint32_t)T.white[r0 + tid]
+                                       : 0u;
+    const float aa_on = le && row_t ? T.aa_on[r0 + tid] : 0.f;
+    const uint32_t tabw =
+        le ? (tid < le::N_TABLES / 4
+                  ? *le::table_word(tid, T.pre, T.aa, T.acc, T.dat) : 0u)
+           : tid < 75 ? (uint32_t)T.masks[tid] : 0u;
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const int i = tid + k * THREADS, s = i / max(nr, 1);
+        const long long slot = s < T.S ? s : T.S - 1;
+        sn[k] = i < n_bits ? T.snr[slot * T.st_s + bc[k] * T.st_c]
+                           : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+        const int c = tid + k * THREADS;
+        if (T.use_gate && c < T.w) {
+            M.a[c] = (uint16_t)(cs0[k] < T.S ? cs0[k] : T.S);
+            M.ma[c] = cma[k];
         }
     }
+    for (int c = tid + KC * THREADS; T.use_gate && c < T.w; c += THREADS) {
+        const long long x = T.s0[c];
+        M.a[c] = (uint16_t)(x < T.S ? x : T.S);
+        M.ma[c] = (uint32_t)T.ma[c];
+    }
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const int i = tid + k * THREADS;
+        if (i < n_bits)
+            M.bits[i] = sn[k] >= T.squelch;
+    }
+    for (int i = tid + KB * THREADS; i < n_bits; i += THREADS) {
+        const int s = i / nr, dr = i - s * nr;
+        const long long c = T.rows != nullptr ? T.rows[r0 + dr]
+                                              : r0 + dr;
+        const long long slot = s < T.S ? s : T.S - 1;
+        M.bits[i] = T.snr[slot * T.st_s + c * T.st_c] >= T.squelch;
+    }
+    if (T.rows != nullptr && row_t)
+        M.rows[tid] = row_c;
+    if (le && row_t) {
+        M.white[tid] = white;
+        M.adv[tid] = aa_on > 0.5f;
+    }
+    if (le && tid < le::N_TABLES / 4)
+        reinterpret_cast<uint32_t*>(s_tab)[tid] = tabw;
+    else if (!le && tid < 75)
+        s_mask[tid] = tabw;
+    __syncthreads();
 
-    // ---- the last tile: the count, and the rows past it
-    if (t == n_tiles - 1) {
-        const int total = first + agg;
-        const int K = min(total, max_hits);
-        const int cols = LE ? 3 : 4;
-        if (tid == 0)
-            *count = total;
-        for (long long i = (long long)K * ww + tid;
-             i < (long long)max_hits * ww; i += THREADS)
-            win[i] = 0u;
-        for (int i = K * cols + tid; i < max_hits * cols; i += THREADS)
-            tab[i] = -1;
+    // ---- ranks within the block: pass 0 in registers, later passes
+    // (ranges over 8,192 words) counted here and listed again below
+    gate_pass(T, M, r0, nr, first, v);
+    int ex[REG];
+    int agg0;
+    const int wbase = block_scan(warp_ranks(v, lane, ex), lane, warp,
+                                 s_warp, &agg0);
+    const int agg = agg0 + (hi - lo > PASS                // block-uniform
+                                ? later_count(T, M, r0, nr, lo, hi, s_warp)
+                                : 0);
+
+    // ---- the block's count into every block's shared memory (every
+    // block has started: the first barrier's wait); while the cluster
+    // gathers, list the hits of block rank below max_hits and take each
+    // warp's first
+    cluster_wait();
+    if (warp == 0 && lane < CLUSTER)
+        *cluster.map_shared_rank(&s_counts[b], lane) = agg;
+    cluster_arrive();
+    const int n_list = min(agg, T.max_hits);
+    if (n_list > 0) {                                  // block-uniform
+        list_pass(v, first, ex, wbase, n_list, M.list);
+        if (hi - lo > PASS && agg0 < n_list)
+            later_list(T, M, r0, nr, lo, hi, agg0, n_list, s_warp);
+        __syncthreads();
+    }
+    HitRow h0;
+    if (warp < n_list)
+        h0 = hit_row(T, M, s_tab, s_mask, r0, M.list[warp], lane, le);
+
+    // ---- the block's base and the total, from the cluster's counts
+    // (after this wait no block touches another's shared memory)
+    cluster_wait();
+    const int c = lane < CLUSTER ? s_counts[lane] : 0;
+    const int base = __reduce_add_sync(FULL, lane < b ? c : 0);
+    const int total = __reduce_add_sync(FULL, c);
+
+    // ---- the count and the rows past it, this block's share
+    const int K = min(total, T.max_hits);
+    const int cols = le ? 3 : 4;
+    if (b == 0 && tid == 0)
+        *T.count = total;
+    fill_share(T.tab + K * cols, (T.max_hits - K) * cols, -1, b, CLUSTER);
+    fill_share(T.win + K * T.ww, (T.max_hits - K) * T.ww, 0u, b, CLUSTER);
+
+    // ---- the block's hits of rank base + k < max_hits
+    const int n_mine = min(n_list, max(0, T.max_hits - base));
+    if (warp < n_mine)
+        store_row(T, h0, base + warp, lane, le);
+    for (int k = warp + WARPS; k < n_mine; k += WARPS)
+        later_hit(T, M, s_tab, s_mask, r0, M.list[k], base + k, lane, le);
+}
+
+// An empty kernel: the launch floor chip_smoke.py sets beside the hit
+// table's time (one block of one warp, or the hit table's own grid of
+// clusters with its two cluster barriers).
+__global__ void hit_table_floor_kernel(int cluster_sync)
+{
+    if (cluster_sync) {
+        cg::this_cluster().sync();
+        cg::this_cluster().sync();
     }
 }
 
-extern "C" int hit_table_launch(
-    const int* hitw, int R, int w, const int* words, int W,
-    const long long* rows, const float* snr, int S, int st_s, int st_c,
-    const long long* s0, const int* ma, float squelch, int use_gate,
-    int max_hits, int ww, const int* masks, const int* white,
-    const float* aa_on, const unsigned char* pre, const unsigned char* aa,
-    const unsigned char* acc, const unsigned char* dat, long long* state,
-    int* count, int* tab, int* win, void* stream)
+namespace {
+
+bool valid(const Tail& t)
 {
-    const bool le = masks == nullptr;
-    if (R <= 0 || w <= 0 || w > W || max_hits <= 0 || ww < 3 ||
-        (use_gate && S <= 0) || (le && (white == nullptr ||
-                                       aa_on == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    const int n_tiles = (int)(((long long)R * w + TILE - 1) / TILE);
-    const int gate_rows = (TILE - 1) / w + 2 < R ? (TILE - 1) / w + 2 : R;
-    const size_t smem = (size_t)max_hits * sizeof(int) +
-                        (use_gate ? (size_t)gate_rows * (S + 1) : 0);
-    auto kernel = le ? hit_table_kernel<true> : hit_table_kernel<false>;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
+    const bool le = t.masks == nullptr;
+    return t.hitw != nullptr && t.words != nullptr && t.s0 != nullptr &&
+           t.ma != nullptr && t.count != nullptr && t.tab != nullptr &&
+           t.win != nullptr && t.R > 0 && t.w > 0 && t.w <= t.W &&
+           t.max_hits > 0 && t.ww >= 3 && t.ww <= 32 * WMAX && t.per > 0 &&
+           t.per % 4 == 0 &&
+           (long long)t.per * CLUSTER >= (long long)t.R * t.w &&
+           (long long)t.R * t.w * 32 < (1ll << 31) &&
+           block_rows(t) <= THREADS &&
+           (!t.use_gate || (t.snr != nullptr && t.S > 0 && t.S < 65535 &&
+                            t.Cs > 0)) &&
+           (!le || (t.white != nullptr && t.aa_on != nullptr &&
+                    t.pre != nullptr && t.aa != nullptr &&
+                    t.acc != nullptr && t.dat != nullptr));
+}
+
+// The kernel's attributes on the current device: the dynamic shared
+// memory it may take and the non-portable cluster size.
+cudaError_t prepare(const void* kernel, size_t smem)
+{
+    constexpr int MAX_DEV = 64;
+    static int smem_set[MAX_DEV][2];
+    static bool wide_set[MAX_DEV][2];
+    const int k = kernel == (const void*)hit_table_kernel ? 0 : 1;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess)
+        return e;
+    if (dev >= MAX_DEV)
+        return cudaErrorInvalidDevice;
+    if (smem > 48 * 1024 && (int)smem > smem_set[dev][k]) {
+        e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess)
-            return (int)e;
+            return e;
+        smem_set[dev][k] = (int)smem;
     }
-    kernel<<<n_tiles, THREADS, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)hitw, R, w, (const uint32_t*)words, W, rows, snr, S,
-        st_s, st_c, s0, ma, squelch, use_gate, max_hits, ww, masks, white,
-        aa_on, pre, aa, acc, dat, (unsigned long long*)state, n_tiles, count,
-        tab, (uint32_t*)win);
-    return (int)cudaGetLastError();
+    if (!wide_set[dev][k]) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess)
+            return e;
+        wide_set[dev][k] = true;
+    }
+    return cudaSuccess;
+}
+
+cudaLaunchConfig_t config(int blocks, int threads, size_t smem,
+                          void* stream, cudaLaunchAttribute* attr,
+                          int cluster)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = cluster;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+}  // namespace
+
+// n_tails (1 or 2) tails in one launch, one cluster of CLUSTER blocks
+// each.  Returns the cudaError_t of the launch: a cluster the card
+// refuses (size, attribute, shared memory) is an error, not a smaller
+// launch.
+extern "C" int hit_table_launch(const Tail* tails, int n_tails, void* stream)
+{
+    if (tails == nullptr || n_tails < 1 || n_tails > MAX_TAILS)
+        return (int)cudaErrorInvalidValue;
+    Tails p = {};
+    size_t smem = 0;
+    for (int k = 0; k < n_tails; ++k) {
+        if (!valid(tails[k]))
+            return (int)cudaErrorInvalidValue;
+        p.t[k] = tails[k];
+        const size_t s = smem_layout(tails[k], nullptr, nullptr);
+        smem = s > smem ? s : smem;
+    }
+    cudaError_t e = prepare((const void*)hit_table_kernel, smem);
+    if (e == cudaSuccess) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = config(CLUSTER * n_tails, THREADS,
+                                              smem, stream, &attr, CLUSTER);
+        e = cudaLaunchKernelEx(&cfg, hit_table_kernel, p);
+    }
+    // a refusal is returned once, and not left for the next launch's
+    // cudaGetLastError
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
+}
+
+// The launch floor: shape 0 one block of 32 threads, shape 1 the hit
+// table's grid (n_tails clusters of CLUSTER blocks of 1,024 threads,
+// two cluster barriers).
+extern "C" int hit_table_floor_launch(int shape, int n_tails, void* stream)
+{
+    if ((shape != 0 && shape != 1) || n_tails < 1 || n_tails > MAX_TAILS)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = prepare((const void*)hit_table_floor_kernel, 0);
+    if (e == cudaSuccess) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg =
+            shape == 0 ? config(1, 32, 0, stream, &attr, 1)
+                       : config(CLUSTER * n_tails, THREADS, 0, stream,
+                                &attr, CLUSTER);
+        e = cudaLaunchKernelEx(&cfg, hit_table_floor_kernel, shape);
+    }
+    const cudaError_t last = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : last);
 }

@@ -38,24 +38,35 @@ __device__ __forceinline__ int dist(uint32_t b0, uint32_t b1, uint32_t b2,
     return d;
 }
 
-// The four tables (global, uint8, as the wrappers pass them) into one
-// shared array laid out pre | aa | acc | dat, by all threads of a block
-// in 32-bit words; the caller synchronises.
+// Word i (i < N_TABLES / 4) of the four tables (global, uint8, as the
+// wrappers pass them) laid out as one array pre | aa | acc | dat: its
+// address.
+__device__ __forceinline__ const uint32_t* table_word(int i,
+                                                      const uint8_t* pre,
+                                                      const uint8_t* aa,
+                                                      const uint8_t* acc,
+                                                      const uint8_t* dat)
+{
+    const int b = 4 * i;
+    const uint8_t* src = b < N_PRE ? pre + b
+                       : b < N_PRE + N_AA ? aa + (b - N_PRE)
+                       : b < N_PRE + N_AA + N_HDR
+                           ? acc + (b - N_PRE - N_AA)
+                           : dat + (b - N_PRE - N_AA - N_HDR);
+    return reinterpret_cast<const uint32_t*>(src);
+}
+
+// The four tables into one shared array laid out as table_word lays
+// them out, by all threads of a block in 32-bit words; the caller
+// synchronises.
 __device__ __forceinline__ void load_tables(uint8_t* s, const uint8_t* pre,
                                             const uint8_t* aa,
                                             const uint8_t* acc,
                                             const uint8_t* dat)
 {
     uint32_t* s32 = reinterpret_cast<uint32_t*>(s);
-    for (int i = threadIdx.x; i < N_TABLES / 4; i += blockDim.x) {
-        const int b = 4 * i;
-        const uint8_t* src = b < N_PRE ? pre + b
-                           : b < N_PRE + N_AA ? aa + (b - N_PRE)
-                           : b < N_PRE + N_AA + N_HDR
-                               ? acc + (b - N_PRE - N_AA)
-                               : dat + (b - N_PRE - N_AA - N_HDR);
-        s32[i] = __ldg(reinterpret_cast<const uint32_t*>(src));
-    }
+    for (int i = threadIdx.x; i < N_TABLES / 4; i += blockDim.x)
+        s32[i] = __ldg(table_word(i, pre, aa, acc, dat));
 }
 
 }  // namespace le

@@ -44,15 +44,16 @@ stream() takes the fused chain, stream_sync() the flat one.
 All steps end in the same packed tail (_packed_tail):
 
     detect_words   packed access-code detection      [CUDA, ops/detect_kernel]
+    le_detect      (enable_le) the LE detector on the packed words, hit
+                   plane only                        [CUDA, ops/detect]
     hit_table      squelch AND on the word plane, first-k hit extraction,
                    bit-aligned window gather, LAP and error count from
                    each window (the 68 bits against the access code the
-                   LAP predicts)                     [CUDA, ops/hit_table]
-    LE (enable_le):
-    le_detect      the LE detector on the packed words, hit plane only
-                                                     [CUDA, ops/detect]
-    hit_table      its LE form: squelch, extraction, LE windows, each
-                   hit's distance from its window    [CUDA, ops/hit_table]
+                   LAP predicts); with LE on, in the same launch
+                   (hit_tables), its LE form over le_detect's plane:
+                   squelch, extraction, LE windows, each hit's distance
+                   from its window; one thread-block cluster per tail
+                                                     [CUDA, ops/hit_table]
 
 Nothing on the step reads a value back to the host, and its shapes are
 static, so on a CUDA device each step is captured once as a CUDA graph
@@ -630,36 +631,47 @@ def _packed_tail(words, snr_db, *, ac_masks, ac_a68t, ac_c68, word_s0,
                  max_hits, max_le_hits, le_rows=None, **le_consts):
     """Both chains' tail (gr_bluetooth_tpu/models/frontend.py:750-808):
     (C, W) packed words, (S, C) slot SNR -> the step's 7-tuple:
-    detect_words, then hit_table over its hit plane (squelch, extraction,
-    windows and the A68 rows in one kernel).  The group delay (delay_sym,
-    a static of every step) is built into the squelch word constants."""
+    detect_words, with LE on le_detect, then hit_table over the hit
+    planes (squelch, extraction, windows and the rows in one kernel; with
+    LE on both tails in one launch, hit_tables).  The group delay
+    (delay_sym, a static of every step) is built into the squelch word
+    constants."""
     del delay_sym
     hitw, _, _ = detect_kernel.detect_words(words, n_sym - 72 + 1,
                                             max_ac_errors, ac_masks)
-    n_hits, tab, windows = hit_table.hit_table(
-        hitw, words, None, snr_db, word_s0=word_s0, word_mask_a=word_mask_a,
-        squelch=squelch, max_hits=max_hits,
-        ac=dict(ac_a68t=ac_a68t, ac_c68=ac_c68, ac_masks=ac_masks))
+    classic = dict(hitw=hitw, words=words, rows=None, snr_db=snr_db,
+                   word_s0=word_s0, word_mask_a=word_mask_a,
+                   squelch=squelch, max_hits=max_hits,
+                   ac=dict(ac_a68t=ac_a68t, ac_c68=ac_c68,
+                           ac_masks=ac_masks))
     if le_rows is None:
-        return snr_db, n_hits, tab, windows, None, None, None
-    return (snr_db, n_hits, tab, windows,
-            *_le_tail(words, snr_db, le_rows, n_sym=n_sym, squelch=squelch,
-                      max_le_hits=max_le_hits, **le_consts))
+        return (snr_db, *hit_table.hit_table(**classic), None, None, None)
+    cls, le = hit_table.hit_tables(classic, _le_args(
+        words, snr_db, le_rows, n_sym=n_sym, squelch=squelch,
+        max_le_hits=max_le_hits, **le_consts))
+    return (snr_db, *cls, *le)
 
 
-def _le_tail(words, snr_db, le_rows, *, n_sym, squelch, max_le_hits,
+def _le_args(words, snr_db, le_rows, *, n_sym, squelch, max_le_hits,
              le_white_word, le_aa_on, le_max_dist, le_word_s0,
              le_word_mask_a, **le_tables):
     """The LE branch on packed planes (gr_bluetooth_tpu/models/
-    frontend.py:797-808): (n_le, le_tab, le_windows).  le_detect's hit
-    plane (hits only) into hit_table's LE form: the packed squelch gate
-    of the LE rows, the first max_le_hits hits in row-major order (n_le
-    counts them all), their windows and their distances."""
+    frontend.py:797-808) up to its table: le_detect's hit plane (hits
+    only) and hit_table's LE arguments over it, as a dict: the packed
+    squelch gate of the LE rows, the first max_le_hits hits in row-major
+    order (n_le counts them all), their windows and their distances."""
     hitw, _ = detect.le_detect(words, le_rows, n_sym, le_white_word,
                                le_aa_on, le_max_dist, with_dist=False,
                                **le_tables)
-    return hit_table.hit_table(
-        hitw, words, le_rows, snr_db, word_s0=le_word_s0,
-        word_mask_a=le_word_mask_a, squelch=squelch, max_hits=max_le_hits,
-        le=dict(le_white_word=le_white_word, le_aa_on=le_aa_on,
-                **le_tables))
+    return dict(hitw=hitw, words=words, rows=le_rows, snr_db=snr_db,
+                word_s0=le_word_s0, word_mask_a=le_word_mask_a,
+                squelch=squelch, max_hits=max_le_hits,
+                le=dict(le_white_word=le_white_word, le_aa_on=le_aa_on,
+                        **le_tables))
+
+
+def _le_tail(words, snr_db, le_rows, **le_consts):
+    """The LE branch alone: (n_le, le_tab, le_windows), hit_table over
+    _le_args' plane."""
+    return hit_table.hit_table(**_le_args(words, snr_db, le_rows,
+                                          **le_consts))

@@ -29,16 +29,23 @@ Returns (count int32 0-d, tab (max_hits, 4 or 3) int32, windows
 (max_hits, width // 32 + 1) int32), all of static shape with no host
 sync, so the step stays capturable as a CUDA graph.
 
+hit_tables(classic, le) computes a step's two tails, each as hit_table
+would, in one launch.
+
 A CPU tensor runs the plain version, hit_table_plain: the torch
 composition the step ran before the kernel (_squelch_gate_words,
 _extract_hits_packed, _gather_windows, _hit_rows; the LE distance from
 le_detect_batch on the window's first 56 symbols).  A CUDA tensor
-launches csrc/hit_table.cu, counted in hit_table.launches (classic) and
-hit_table.le_launches (LE), or raises.
+launches csrc/hit_table.cu, one thread-block cluster of CLUSTER blocks
+per tail, which splits the plane as cluster_split says and exchanges
+its blocks' counts through distributed shared memory; a tail is counted in hit_table.launches (classic) or hit_table.le_launches
+(LE).  A launch the card refuses raises; nothing falls back to the plain
+version.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,14 +54,16 @@ from ..utils.device import fp32_matmul
 from .detect import le_detect_batch
 from .detect_kernel import popcount, u32_to_i32
 
-__all__ = ["hit_table", "hit_table_plain", "WIN_SYMBOLS", "LE_WIN_SYMBOLS",
-           "LE_TABLES"]
+__all__ = ["hit_table", "hit_tables", "hit_table_plain", "cluster_split",
+           "WIN_SYMBOLS", "LE_WIN_SYMBOLS", "LE_TABLES", "CLUSTER",
+           "THREADS"]
 
 WIN_SYMBOLS = 3200       # per-hit symbol window (>= 3125)
 LE_WIN_SYMBOLS = 512     # per-LE-hit window (>= 376 + header margin)
 LE_TABLES = ("le_pre_dist", "le_aa_dist", "le_acc_dist", "le_dat_dist")
 _M32 = 0xFFFFFFFF
-_TILE = 1024             # plane words per block of csrc/hit_table.cu
+THREADS = 1024           # threads per block of csrc/hit_table.cu
+CLUSTER = 16             # blocks per tail's cluster (its CLUSTER)
 
 
 def _extract_hits_packed(hitw, max_hits: int):
@@ -226,14 +235,103 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launcher():
-    fn = cuda_build.load("hit_table").hit_table_launch
-    if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, P, I, P, P, I, I, I, P, P, F, I, I, I, P, P,
-                       P, P, P, P, P, P, P, P, P, P]
-        fn.restype = ctypes.c_int
-    return fn
+class Split(NamedTuple):
+    """How the cluster's blocks share an n-word plane: block b takes the
+    words [b * per, (b + 1) * per), cut at the plane's end (so a block
+    may own none)."""
+    blocks: int
+    per: int
+
+    def block_range(self, b: int, n: int) -> tuple[int, int]:
+        lo = min(b * self.per, n)
+        return lo, min(lo + self.per, n)
+
+
+def cluster_split(n_words: int) -> Split:
+    """The split of an n-word plane over a tail's cluster, as
+    csrc/hit_table.cu takes it: whole 128-byte lines per block."""
+    per = -(-max(n_words, 1) // CLUSTER)
+    return Split(CLUSTER, -(-per // 32) * 32)
+
+
+class _Tail(ctypes.Structure):
+    """One tail's arguments: the layout of struct Tail in
+    csrc/hit_table.cu."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        "hitw", "words", "rows", "snr", "s0", "ma", "masks", "white",
+        "aa_on", "pre", "aa", "acc", "dat", "count", "tab", "win")] +
+        [(k, ctypes.c_int) for k in (
+            "R", "w", "W", "S", "Cs", "st_s", "st_c", "use_gate",
+            "max_hits", "ww", "per")] + [("squelch", ctypes.c_float)])
+
+
+def _lib():
+    lib = cuda_build.load("hit_table")
+    if lib.hit_table_launch.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.hit_table_launch.argtypes = [ctypes.POINTER(_Tail), I, P]
+        lib.hit_table_launch.restype = I
+        lib.hit_table_floor_launch.argtypes = [I, I, P]
+        lib.hit_table_floor_launch.restype = I
+    return lib
+
+
+def _tail_args(t: dict):
+    """A tail's struct for the kernel and its outputs, allocated."""
+    hitw, words, rows, snr_db = t["hitw"], t["words"], t["rows"], t["snr_db"]
+    le, ac = t.get("le"), t.get("ac")
+    dev = hitw.device
+    R, w = hitw.shape
+    ww = (WIN_SYMBOLS if le is None else LE_WIN_SYMBOLS) // 32 + 1
+    max_hits = t["max_hits"]
+    out = (torch.empty((), dtype=torch.int32, device=dev),
+           torch.empty((max_hits, 4 if le is None else 3),
+                       dtype=torch.int32, device=dev),
+           torch.empty((max_hits, ww), dtype=torch.int32, device=dev))
+    split = cluster_split(R * w)
+    squelch = t["squelch"]
+    epi = dict(masks=_ptr(ac["ac_masks"])) if le is None else dict(
+        white=_ptr(le["le_white_word"]), aa_on=_ptr(le["le_aa_on"]),
+        **{k: _ptr(le[f"le_{k}_dist"]) for k in ("pre", "aa", "acc", "dat")})
+    st_s, st_c = snr_db.stride()
+    return _Tail(
+        hitw=hitw.data_ptr(), words=words.data_ptr(), rows=_ptr(rows),
+        snr=snr_db.data_ptr(), s0=t["word_s0"].data_ptr(),
+        ma=t["word_mask_a"].data_ptr(), count=out[0].data_ptr(),
+        tab=out[1].data_ptr(), win=out[2].data_ptr(), R=R, w=w,
+        W=words.shape[1], S=snr_db.shape[0], Cs=snr_db.shape[1],
+        st_s=st_s, st_c=st_c, use_gate=int(squelch is not None),
+        max_hits=max_hits, ww=ww, per=split.per,
+        squelch=0.0 if squelch is None else float(squelch), **epi), out
+
+
+def _run(tails):
+    """hit_table over one or two tails (dicts of its arguments, on one
+    device): the plain version per tail on the CPU, one launch of
+    csrc/hit_table.cu, a cluster per tail, on a card."""
+    for t in tails:
+        _check(t["hitw"], t["words"], t["rows"], t["snr_db"],
+               t["word_s0"], t["word_mask_a"], t["squelch"], t["max_hits"],
+               t.get("ac"), t.get("le"))
+    dev = tails[0]["hitw"].device
+    if any(t["hitw"].device != dev for t in tails):
+        raise ValueError("hit_table: the tails must be on one device")
+    if dev.type == "cpu":
+        return tuple(hit_table_plain(**t) for t in tails)
+    if dev.type != "cuda":
+        raise ValueError(f"hit_table: unsupported device {dev}")
+    args, outs = zip(*(_tail_args(t) for t in tails))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().hit_table_launch((_Tail * len(args))(*args), len(args),
+                                     stream)
+    cuda_build.check(rc, "hit_table")
+    for t in tails:
+        if t.get("le") is None:
+            hit_table.launches += 1
+        else:
+            hit_table.le_launches += 1
+    return outs
 
 
 def hit_table(hitw, words, rows, snr_db, *, word_s0, word_mask_a, squelch,
@@ -250,46 +348,33 @@ def hit_table(hitw, words, rows, snr_db, *, word_s0, word_mask_a, squelch,
     ops/detect_kernel.ac_masks) or le = {le_white_word (R,) int32,
     le_aa_on (R, 1) float32, and the four uint8 distance tables of
     ops/detect.le_table_consts}.  All on hitw's device."""
-    _check(hitw, words, rows, snr_db, word_s0, word_mask_a, squelch,
-           max_hits, ac, le)
-    dev = hitw.device
-    if dev.type == "cpu":
-        return hit_table_plain(hitw, words, rows, snr_db, word_s0=word_s0,
-                               word_mask_a=word_mask_a, squelch=squelch,
-                               max_hits=max_hits, ac=ac, le=le)
-    if dev.type != "cuda":
-        raise ValueError(f"hit_table: unsupported device {dev}")
-    R, w = hitw.shape
-    W = words.shape[1]
-    ww = (WIN_SYMBOLS if le is None else LE_WIN_SYMBOLS) // 32 + 1
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    tab = torch.empty((max_hits, 4 if le is None else 3), dtype=torch.int32,
-                      device=dev)
-    windows = torch.empty((max_hits, ww), dtype=torch.int32, device=dev)
-    # the look-back's ticket and tile states, zero at every call
-    state = torch.zeros(1 + -(-R * w // _TILE), dtype=torch.int64,
-                        device=dev)
-    if le is None:
-        epi = (_ptr(ac["ac_masks"]),) + (None,) * 6
-    else:
-        epi = (None, _ptr(le["le_white_word"]), _ptr(le["le_aa_on"]),
-               *(_ptr(le[k]) for k in LE_TABLES))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launcher()(hitw.data_ptr(), R, w, words.data_ptr(), W,
-                         _ptr(rows), _ptr(snr_db), snr_db.shape[0],
-                         *snr_db.stride(),
-                         word_s0.data_ptr(), word_mask_a.data_ptr(),
-                         0.0 if squelch is None else float(squelch),
-                         int(squelch is not None), max_hits, ww, *epi,
-                         state.data_ptr(), count.data_ptr(), tab.data_ptr(),
-                         windows.data_ptr(), stream)
-    cuda_build.check(rc, "hit_table")
-    if le is None:
-        hit_table.launches += 1
-    else:
-        hit_table.le_launches += 1
-    return count, tab, windows
+    return _run((dict(hitw=hitw, words=words, rows=rows, snr_db=snr_db,
+                      word_s0=word_s0, word_mask_a=word_mask_a,
+                      squelch=squelch, max_hits=max_hits, ac=ac, le=le),))[0]
+
+
+def hit_tables(classic: dict, le: dict):
+    """A step's two tails in one launch: `classic` and `le` are
+    hit_table's arguments as dicts (the first with ac=, the second with
+    le=).  Returns hit_table's (count, tab, windows) of each; counts one
+    launch in hit_table.launches and one in hit_table.le_launches, as
+    two hit_table calls would."""
+    if classic.get("ac") is None or le.get("le") is None:
+        raise ValueError("hit_tables: the classic tail takes ac=, the LE "
+                         "tail le=")
+    return _run((dict(classic, le=None), dict(le, ac=None)))
+
+
+def launch_floor(shape: int, n_tails: int = 1):
+    """Launch csrc/hit_table.cu's empty kernel on the current card: shape
+    0 one block of 32 threads, shape 1 hit_table's grid (n_tails
+    clusters of CLUSTER blocks of THREADS threads, its two cluster
+    barriers).  For timing the launch floor (chip_smoke.py); counts
+    nothing."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rc = _lib().hit_table_floor_launch(
+        shape, n_tails, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "hit_table_floor")
 
 
 hit_table.launches = 0

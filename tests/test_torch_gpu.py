@@ -1139,3 +1139,83 @@ def test_hit_table_launches_once_per_tail(cuda, le):
         assert hit_table.hit_table.launches == n + 2
         assert hit_table.hit_table.le_launches == n_le + 2 * le
         assert int(want[1]) >= 1 and (not le or int(want[4]) >= 1)
+
+
+# ------------------------------------------------------ hit_table's cluster
+
+@pytest.fixture(scope="module")
+def fe8_le(cuda):
+    return FrontEnd(8e6, 2426e6, block_slots=8, max_ac_errors=1,
+                    enable_le=True)
+
+
+@pytest.fixture(scope="module")
+def fe128_le(cuda):
+    return FrontEnd(80e6, 2441e6, block_slots=128, max_ac_errors=1,
+                    enable_le=True)
+
+
+@pytest.mark.parametrize("geo", ["fe_full", "fe128_le", "fe8_le"])
+def test_hit_cluster_density_cases(request, geo):
+    """The cluster kernel in both forms and both in one launch, at full
+    band with 64- and 128-slot blocks (the classic plane's 79 x 2,596
+    words give a block more than one pass) and at 8 Msps with 8-slot
+    blocks (fewer plane words than the cluster has threads), on
+    chip_smoke.HT_DENSITIES' cases: no hit, one, exactly max_hits, more,
+    and all in one block's range; count, table and windows exact."""
+    fe = request.getfixturevalue(geo)
+    if geo == "fe128_le":
+        n = fe.consts["word_s0"].shape[0] * len(fe.bank.channels)
+        assert hit_table.cluster_split(n).per > 8 * hit_table.THREADS
+    for density, cl, le, k in chip_smoke.density_cases(fe, seed=16):
+        got = (chip_smoke.tails_exact(density, (cl,)) +
+               chip_smoke.tails_exact(density, (le,)))
+        assert got == list(k)
+        assert chip_smoke.tails_exact(density, (cl, le)) == got
+        if density == "above max_hits":
+            assert got[0] > fe.max_hits and got[1] > fe.max_le_hits
+        elif density == "zero":
+            assert got == [0, 0]
+        elif density == "one block":
+            assert got == [150, 150]
+
+
+@pytest.mark.parametrize("geo", ["fe_full", "fe8_le"])
+def test_hit_tails_on_two_streams_at_once(request, geo):
+    """Tails launched on two streams of one card with no sync between
+    them (as shards on one card run): each equals the plain version, so
+    no launch shares state with another."""
+    fe = request.getfixturevalue(geo)
+    side = (torch.cuda.Stream(), torch.cuda.Stream())
+    pending = []
+    for _ in range(2):
+        for _, cl, le, _ in chip_smoke.density_cases(fe, seed=5):
+            for tails, st in (((cl,), side[0]), ((le,), side[1]),
+                              ((cl, le), side[1]), ((cl,), side[1])):
+                st.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(st):
+                    pending.append((tails, hit_table._run(tails)))
+    torch.cuda.synchronize()
+    for tails, got in pending:
+        chip_smoke.tails_exact("two streams", tails, got=got)
+
+
+def test_hit_tables_counts_each_tail_once(fe_full):
+    """hit_tables launches once and counts one classic and one LE tail,
+    as two hit_table calls would."""
+    _, cl, le, _ = next(chip_smoke.density_cases(fe_full, seed=3))
+    n, n_le = hit_table.hit_table.launches, hit_table.hit_table.le_launches
+    hit_table.hit_tables(cl, le)
+    assert (hit_table.hit_table.launches,
+            hit_table.hit_table.le_launches) == (n + 1, n_le + 1)
+
+
+def test_hit_table_raises_on_a_refused_cluster(fe_full):
+    """A cluster the card refuses (here for its shared memory: a list of
+    65,536 hits takes 256 KB a block) raises; nothing falls back to the
+    plain version."""
+    _, cl, _, _ = next(chip_smoke.density_cases(fe_full, seed=4))
+    n = hit_table.hit_table.launches
+    with pytest.raises(RuntimeError):
+        hit_table._run((dict(cl, max_hits=1 << 16),))
+    assert hit_table.hit_table.launches == n
