@@ -1,0 +1,9 @@
+"""device.idle_pct: share of the traced window with no kernel or copy
+on the card, in % (profiler timeline)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
