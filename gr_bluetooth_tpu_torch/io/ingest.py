@@ -35,6 +35,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.metrics import metrics
+
 __all__ = ["PipelinedIngest", "WIRES", "WIRE_ZERO_BYTE", "live_chunks",
            "wire_chunks", "wire_decode", "wire_decode_np", "wire_encode"]
 
@@ -149,7 +151,13 @@ class PipelinedIngest:
     output is the packed int32 vector, copied into a ring of DEPTH + 2
     preallocated host buffers straight after the replay, on the same
     stream.  A ring slot is reused only after its event has synchronized.
-    The carry is this ingest's state, so it runs one stream at a time."""
+    The carry is this ingest's state, so it runs one stream at a time.
+
+    Each block opens the stages (utils/metrics.py) h2d, with its children
+    ingest.slot_wait and ingest.stage, then device_step, then assemble,
+    with its child ingest.result_wait, each once and in the order the
+    blocks were handed over; a _Slip opens none.  So the j-th h2d and the
+    j-th assemble of a stream belong to one block."""
 
     def __init__(self, fe, wire: str = "f32"):
         if wire not in WIRES:
@@ -228,7 +236,8 @@ class PipelinedIngest:
         if a.shape != self.chunk_shape:
             raise ValueError(f"wire chunk must be {self.chunk_shape}, got "
                              f"{a.shape}")
-        np.copyto(slot.chunk.numpy(), a)
+        with metrics.stage("ingest.stage"):
+            np.copyto(slot.chunk.numpy(), a)
         with self._step.on_stream():
             self._step.inputs[1].copy_(slot.chunk, non_blocking=True)
 
@@ -263,8 +272,6 @@ class PipelinedIngest:
             self._running = False
 
     def _run(self, chunks, start_clkn, initial_carry, bus):
-        from ..utils.metrics import metrics
-
         fe = self.fe
         if self._step is None:
             self._step = self._build()
@@ -288,7 +295,8 @@ class PipelinedIngest:
             slot = self._ring[self._next % len(self._ring)]
             self._next += 1
             with metrics.stage("h2d"):
-                slot.wait()
+                with metrics.stage("ingest.slot_wait"):
+                    slot.wait()
                 self._h2d(item, slot)
             if len(pending) > DEPTH:
                 yield self._assemble(*pending.pop(0))
@@ -302,9 +310,9 @@ class PipelinedIngest:
             yield self._assemble(*pending.pop(0))
 
     def _assemble(self, slot: _Slot, slot_base: int):
-        from ..utils.metrics import metrics
         with metrics.stage("assemble"):
-            slot.wait()
+            with metrics.stage("ingest.result_wait"):
+                slot.wait()
             # a copy: the slot is reused, and the result keeps its arrays
             buf = slot.out.numpy().copy()
             outs, pos = [], 0

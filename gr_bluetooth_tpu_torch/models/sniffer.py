@@ -28,6 +28,7 @@ from ..core import batch_decode
 from ..core.packets import ClassicPacket, LePacket
 from ..utils.device import resolve_device
 from ..utils.log import EventBus, bus as default_bus, get_logger
+from ..utils.metrics import metrics
 from .frontend import FrontEnd
 from .piconet import BasicRatePiconet, LowEnergyPiconet
 
@@ -121,9 +122,11 @@ class Sniffer:
         pre = {}
         if rows:
             rows = np.asarray(rows)
-            results = batch_decode.decode_known_rows(
-                sym[rows], sizes[rows], np.asarray(clocks),
-                np.asarray(uaps))
+            metrics.count("sniffer.batch_rows", len(rows))
+            with metrics.stage("sniffer.batch_decode"):
+                results = batch_decode.decode_known_rows(
+                    sym[rows], sizes[rows], np.asarray(clocks),
+                    np.asarray(uaps))
             for i, j in enumerate(rows):
                 if results[i] is not None:
                     pre[int(j)] = (results[i], int(clocks[i]),
@@ -295,16 +298,28 @@ class Sniffer:
         return self.run_blocks(self.fe.stream(samples, start_clkn))
 
     def run_blocks(self, results):
+        """Handle each block of `results`.  Per block it opens the stages
+        (utils/metrics.py) sniffer.block and inside it
+        sniffer.precompute, sniffer.classic and sniffer.le, each once,
+        and sniffer.batch_decode inside the first two wherever rows are
+        batched; no stage is opened per hit."""
         for res in results:
+            with metrics.stage("sniffer.block"):
+                self._block(res)
+        return self.decoded
+
+    def _block(self, res):
+        with metrics.stage("sniffer.precompute"):
             sym, sizes, hp, pre = self._precompute_block(res)
-            # LAPs already in steady state when the block's rows were
-            # precomputed; a piconet turning steady MID-block (discovery
-            # win, FHS harvest) gets its remaining hits batch-precomputed
-            # on the spot — without this, every hit of a newly discovered
-            # piconet in its first block decodes per-packet (the dominant
-            # discovery-mode cost, round-5 profile)
-            steady = {lap for lap, pn in self.basic_rate_piconets.items()
-                      if pn.have_clk6 and pn.have_uap}
+        # LAPs already in steady state when the block's rows were
+        # precomputed; a piconet turning steady MID-block (discovery win,
+        # FHS harvest) gets its remaining hits batch-precomputed on the
+        # spot — without this, every hit of a newly discovered piconet in
+        # its first block decodes per-packet (the dominant discovery-mode
+        # cost, round-5 profile)
+        steady = {lap for lap, pn in self.basic_rate_piconets.items()
+                  if pn.have_clk6 and pn.have_uap}
+        with metrics.stage("sniffer.classic"):
             for j, h in enumerate(res.hits):
                 self._handle_ac(res, h, sym=sym[j], size=int(sizes[j]),
                                 hp=hp[j], pre=pre.get(j))
@@ -317,10 +332,10 @@ class Sniffer:
                         if rest:
                             pre.update(self._batch_rows(res, sym, sizes,
                                                         hp, rest))
-            if self.enable_le:
+        if self.enable_le:
+            with metrics.stage("sniffer.le"):
                 self._handle_le(res)
-            self.cursor = res.slot_base + res.n_slots
-        return self.decoded
+        self.cursor = res.slot_base + res.n_slots
 
     # ------------------------------------------------------- checkpoint
 
