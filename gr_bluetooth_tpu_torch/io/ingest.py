@@ -14,9 +14,15 @@ The port of gr_bluetooth_tpu/io/ingest.py.  The contract has three parts:
     static chunk buffer; the step is one CUDA graph replay; its outputs,
     packed into one int32 buffer, are copied device->host into pinned
     memory with one non_blocking copy, and an event is recorded after
-    it.  Up to DEPTH blocks are in flight past the one being assembled,
-    and the host waits on a block's event only when it assembles that
-    block.  Nothing on the step reads a value back to the host.
+    it.  Nothing on the step reads a value back to the host.  At most
+    DEPTH blocks stay in flight past the one being assembled.  A source
+    that keeps the loop waiting (a live radio) is pulled on a thread of
+    its own, one item ahead, and a block's result is handed out as soon
+    as its event has completed; when no chunk is ready the host waits on
+    the oldest block's event rather than on the source, so the wait for
+    the air never holds a finished result back.  A source that stays
+    ahead (a replay) is pulled by the loop, which then keeps DEPTH
+    blocks in flight.
 
 Clock correctness under overruns: a live radio cannot backpressure the
 air, so when the drop-oldest ring (io/sources.LiveSource) sheds samples
@@ -30,6 +36,10 @@ it.
 """
 from __future__ import annotations
 
+import queue
+import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,7 +65,12 @@ WIRES = {
 # must use it: a 0x00 pad is full-scale -1-1j in the u8 offset format
 WIRE_ZERO_BYTE = {"f32": 0, "i16": 0, "i8": 0, "u8": 127, "i4": 0}
 
-DEPTH = 4   # blocks in flight past the one being assembled
+DEPTH = 4   # blocks in flight past the one being assembled, at most
+_JOIN_S = 1.0   # how long a run that ends waits for its source thread
+# a pull that keeps the host off its CPU this long waited for its source
+# (a block of air is 5 ms or more), or the host was busy elsewhere: two
+# such pulls in a row are the source's
+_WAITED_S = 1e-3
 
 
 def wire_encode(x, wire: str) -> np.ndarray:
@@ -133,6 +148,154 @@ class _Slot:
         if self.event is not None:
             self.event.synchronize()
 
+    def done(self) -> bool:
+        """Whether this slot's last block has left the device, without
+        waiting."""
+        return self.event is None or self.event.query()
+
+
+_END = object()     # the end of the source, in the feed's stream order
+
+
+@dataclass
+class _Raised:
+    """An exception the source raised, carried to the consumer in
+    stream order."""
+    exc: BaseException
+
+
+class _Feed:
+    """The chunk stream as the ingest loop takes it: get(block=False)
+    says whether a chunk is ready without waiting for the source.
+
+    While the source keeps the loop waiting (a live radio, a pipe, a
+    caller that sends a chunk once it has the last result), a daemon
+    thread pulls it into a queue of one item, the end of the stream
+    (_END) and an exception of the source (_Raised) in stream order with
+    the chunks and _Slip markers.  The thread only pulls: the loop's
+    thread alone touches the CUDA stream, the ring, the carry and the
+    metrics' stages.  The queue holds one item so that the source is
+    read no further ahead of the ingest than that: a deeper queue would
+    drain LiveSource's drop-oldest ring early, which defeats its overrun
+    accounting, and would hold host memory without bound.
+
+    A thread woken for every chunk slows a host that is busy the whole
+    time (a replayed capture, every chunk ready): each wake takes the
+    interpreter lock from the loop.  So once the queue has held a chunk
+    at DEPTH + 1 checks in a row, the thread hands the source back and
+    the loop pulls it itself; when two of those pulls in a row each keep
+    the host off its CPU for _WAITED_S or more, the source is waiting
+    again, and a new thread pulls the chunks after them.  close() stops
+    a thread, which closes the source itself: a generator cannot be
+    closed while another thread runs it."""
+
+    def __init__(self, chunks):
+        self._it = iter(chunks)
+        self._held = deque()    # what a thread pulled before handing back
+        self._ready = 0         # checks in a row that found a chunk ready
+        self._waited = 0        # the loop's pulls in a row that waited
+        self._thread = None
+        self._start()
+
+    def _start(self):
+        self._q = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self._closing = False
+        self._thread = threading.Thread(target=self._pull,
+                                        name="ingest-source", daemon=True)
+        self._thread.start()
+
+    def _pull(self):
+        q, stop = self._q, self._stop
+        try:
+            for item in self._it:
+                q.put(item)
+                if stop.is_set():
+                    return
+            q.put(_END)
+        except BaseException as e:     # re-raised by the loop
+            q.put(_Raised(e))
+        finally:
+            if self._closing:
+                self._close_source()
+
+    def _close_source(self):
+        close = getattr(self._it, "close", None)
+        if close is not None:
+            close()
+
+    def _stop_thread(self):
+        """Tell the thread to stop and free a put in progress: it then
+        puts at most one more item without waiting, and pulls no more."""
+        self._stop.set()
+        try:
+            self._held.append(self._q.get_nowait())
+        except queue.Empty:
+            pass
+
+    def _hand_back(self):
+        """Take the source back from the thread, after its pull in
+        progress; what it pulled is served first."""
+        self._stop_thread()
+        self._thread.join()
+        try:
+            self._held.append(self._q.get_nowait())
+        except queue.Empty:
+            pass
+        self._thread = None
+
+    def _next(self):
+        """The loop's own pull; the second in a row that waited starts a
+        thread for the chunks after it."""
+        t, cpu = time.perf_counter(), time.thread_time()
+        try:
+            item = next(self._it)
+        except StopIteration:
+            return _END
+        except Exception as e:
+            return _Raised(e)
+        off_cpu = time.perf_counter() - t - (time.thread_time() - cpu)
+        self._waited = self._waited + 1 if off_cpu >= _WAITED_S else 0
+        if self._waited > 1:
+            self._ready = self._waited = 0
+            self._start()
+        return item
+
+    @property
+    def waits(self) -> bool:
+        """Whether the source has been keeping the loop waiting: a thread
+        pulls it."""
+        return self._thread is not None
+
+    def get(self, block: bool):
+        """The next item.  With `block` False, a check: raises
+        queue.Empty if a thread pulls the source and has no chunk ready."""
+        if self._held:
+            return self._held.popleft()
+        if self._thread is None:
+            return self._next()
+        if block:
+            return self._q.get()
+        try:
+            item = self._q.get_nowait()
+        except queue.Empty:
+            self._ready = 0
+            raise
+        self._ready += 1
+        if self._ready > DEPTH:
+            self._hand_back()
+        return item
+
+    def close(self):
+        """Close the source: on its thread, after telling the thread to
+        stop (and waiting for it at most _JOIN_S), or here."""
+        if self._thread is None:
+            self._close_source()
+            return
+        self._closing = True
+        self._stop_thread()
+        self._thread.join(_JOIN_S)
+
 
 class PipelinedIngest:
     """Streaming loop over a FrontEnd: wire chunks in, BlockResults out.
@@ -153,11 +316,28 @@ class PipelinedIngest:
     stream.  A ring slot is reused only after its event has synchronized.
     The carry is this ingest's state, so it runs one stream at a time.
 
+    When a block is handed out: at the latest when DEPTH + 1 later
+    chunks have been handed in, finished or not.  While the source keeps
+    the loop waiting, and a thread of its own (_Feed) pulls it one item
+    ahead in a queue of one, also as soon as its event has completed
+    (Event.query, no wait; one block per pass, oldest first), and when
+    no chunk is ready, after waiting on the oldest pending block's event,
+    since the host then has nothing else to do.  A source that waits for
+    the air therefore holds no finished result back.  A source that
+    stays ahead is pulled by the loop itself, which is then busy, and
+    keeps DEPTH blocks in flight: handing out on completion there slowed
+    short blocks.  An exception of the source reaches the consumer after
+    the blocks before it, and closing the run closes the source.
+
     Each block opens the stages (utils/metrics.py) h2d, with its children
     ingest.slot_wait and ingest.stage, then device_step, then assemble,
     with its child ingest.result_wait, each once and in the order the
     blocks were handed over; a _Slip opens none.  So the j-th h2d and the
-    j-th assemble of a stream belong to one block."""
+    j-th assemble of a stream belong to one block.  Counters: blocks,
+    samples_in, classic_hits, le_hits, clock_slipped_slots, and
+    ingest.early_release, the blocks handed out before the DEPTH rule
+    would have handed them out, while the source still ran (the stream's
+    last blocks, drained at its end, are not counted)."""
 
     def __init__(self, fe, wire: str = "f32"):
         if wire not in WIRES:
@@ -260,8 +440,10 @@ class PipelinedIngest:
         `chunks` yields wire arrays, or _Slip markers (from live_chunks)
         signalling dropped air time: the clock advances by the slipped
         slots, the device carry restarts from zeros, and `bus` (if
-        given) gets a clock_slipped event.  One run at a time: iterating
-        a second one while the first is open raises."""
+        given) gets a clock_slipped event.  While it keeps the loop
+        waiting it is iterated on a thread of its own (_Feed); the run
+        closes it when it ends.  One run at a time: iterating a second
+        one while the first is open raises."""
         if self._running:
             raise RuntimeError("this ingest's carry holds one stream at a "
                                "time; finish or close the open one first")
@@ -280,34 +462,64 @@ class PipelinedIngest:
                           for _ in range(DEPTH + 2)]
         self._set_carry(initial_carry)
         slot_base = start_clkn
-        pending: list = []              # [(slot, clkn)]
-        for item in chunks:
-            if isinstance(item, _Slip):
-                # gap in the stream: air time advanced without samples;
-                # packets straddling the gap are unrecoverable anyway
-                slot_base += item.slots
-                self._set_carry()
-                metrics.count("clock_slipped_slots", item.slots)
-                if bus is not None:
-                    bus.emit("clock_slipped", slots=item.slots,
-                             samples=item.samples, clkn=slot_base)
-                continue
-            slot = self._ring[self._next % len(self._ring)]
-            self._next += 1
-            with metrics.stage("h2d"):
-                with metrics.stage("ingest.slot_wait"):
-                    slot.wait()
-                self._h2d(item, slot)
-            if len(pending) > DEPTH:
-                yield self._assemble(*pending.pop(0))
-            with metrics.stage("device_step"):
-                self._launch(slot)
-            pending.append((slot, slot_base))
-            slot_base += fe.block_slots
-            metrics.count("blocks", 1)
-            metrics.count("samples_in", fe.step_samples)
-        while pending:
-            yield self._assemble(*pending.pop(0))
+        pending: deque = deque()        # [(slot, clkn)], oldest first
+        feed = _Feed(chunks)
+        try:
+            while True:
+                # one finished block per pass: the next chunk's copy to
+                # the card then overlaps the hand-out of the block before
+                if pending and feed.waits and pending[0][0].done():
+                    yield self._release_early(pending)
+                try:
+                    item = feed.get(block=False)
+                except queue.Empty:
+                    if pending:
+                        # no chunk to hand in: wait on the card, not the
+                        # source
+                        yield self._release_early(pending)
+                        continue
+                    item = feed.get(block=True)
+                if item is _END:
+                    break
+                if isinstance(item, _Raised):
+                    while pending:
+                        yield self._assemble(*pending.popleft())
+                    raise item.exc
+                if isinstance(item, _Slip):
+                    # gap in the stream: air time advanced without
+                    # samples; packets straddling the gap are
+                    # unrecoverable anyway
+                    slot_base += item.slots
+                    self._set_carry()
+                    metrics.count("clock_slipped_slots", item.slots)
+                    if bus is not None:
+                        bus.emit("clock_slipped", slots=item.slots,
+                                 samples=item.samples, clkn=slot_base)
+                    continue
+                slot = self._ring[self._next % len(self._ring)]
+                self._next += 1
+                with metrics.stage("h2d"):
+                    with metrics.stage("ingest.slot_wait"):
+                        slot.wait()
+                    self._h2d(item, slot)
+                if len(pending) > DEPTH:
+                    yield self._assemble(*pending.popleft())
+                with metrics.stage("device_step"):
+                    self._launch(slot)
+                pending.append((slot, slot_base))
+                slot_base += fe.block_slots
+                metrics.count("blocks", 1)
+                metrics.count("samples_in", fe.step_samples)
+            while pending:
+                yield self._assemble(*pending.popleft())
+        finally:
+            feed.close()
+
+    def _release_early(self, pending: deque):
+        """The oldest pending block's result, handed out before the DEPTH
+        rule would have (counted in ingest.early_release)."""
+        metrics.count("ingest.early_release", 1)
+        return self._assemble(*pending.popleft())
 
     def _assemble(self, slot: _Slot, slot_base: int):
         with metrics.stage("assemble"):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 
 import numpy as np
 
@@ -117,6 +118,12 @@ class LiveSource:
     OLDEST samples (a live radio cannot backpressure the air) and counts
     overruns, which are surfaced into the metrics registry.  Requires the
     native runtime; raises RuntimeError if the toolchain is unavailable.
+
+    iter_raw may run on another thread than close() (the pipelined
+    ingest pulls its source on a thread of its own): a lock keeps the
+    ring from being destroyed under a pop or a count, an iteration that
+    finds the source closed ends, and the counts read after close() are
+    those the ring held when it closed.
     """
 
     def __init__(self, fd: int, chunk_samples: int,
@@ -137,17 +144,26 @@ class LiveSource:
             metrics = default_metrics
         self._metrics = metrics
         self._reported_dropped = 0
+        self._lock = threading.RLock()
+        self._closing = False
+        self._closed_counts = (0, 0)    # (overruns, dropped) at close
         self._ring = lib.bt_ring_create(os.dup(fd), ring_mb << 20, 1)
         if not self._ring:
             raise RuntimeError("ring allocation failed")
 
     @property
     def overruns(self) -> int:
-        return int(self._lib.bt_ring_overruns(self._ring))
+        with self._lock:
+            if self._ring is None:
+                return self._closed_counts[0]
+            return int(self._lib.bt_ring_overruns(self._ring))
 
     @property
     def dropped_bytes(self) -> int:
-        return int(self._lib.bt_ring_dropped(self._ring))
+        with self._lock:
+            if self._ring is None:
+                return self._closed_counts[1]
+            return int(self._lib.bt_ring_dropped(self._ring))
 
     def _account(self):
         d = self.dropped_bytes
@@ -174,23 +190,25 @@ class LiveSource:
         buf = ctypes.create_string_buffer(self.need_bytes)
         pending = b""
         while True:
-            # blocking pop (100 ms cap): idle btrx costs ~0 CPU instead
-            # of a spinning core stolen from the decode thread
-            n = self._lib.bt_ring_pop_wait(self._ring, buf,
-                                           self.need_bytes - len(pending),
-                                           100)
-            if n < 0:
-                break
-            if n == 0:
-                continue
-            pending += buf.raw[:n]
-            self._account()
+            with self._lock:
+                if self._closing or self._ring is None:
+                    return
+                # blocking pop (100 ms cap): idle btrx costs ~0 CPU
+                # instead of a spinning core stolen from the decode thread
+                n = self._lib.bt_ring_pop_wait(
+                    self._ring, buf, self.need_bytes - len(pending), 100)
+                if n < 0:
+                    self._account()
+                    return
+                if n == 0:
+                    continue
+                pending += buf.raw[:n]
+                self._account()
             if len(pending) >= self.need_bytes:
                 chunk, pending = (pending[:self.need_bytes],
                                   pending[self.need_bytes:])
                 a = np.frombuffer(chunk, dtype=dtype)
                 yield a if self.wire == "i4" else a.reshape(-1, 2)
-        self._account()
 
     def __iter__(self):
         for raw in self.iter_raw():
@@ -202,9 +220,15 @@ class LiveSource:
                     raw.T.astype(np.float32)) * scale
 
     def close(self):
-        if self._ring:
-            self._lib.bt_ring_destroy(self._ring)
-            self._ring = None
+        # seen by an iteration between two pops, which then ends and
+        # leaves the lock to this call
+        self._closing = True
+        with self._lock:
+            if self._ring:
+                self._account()
+                self._closed_counts = (self.overruns, self.dropped_bytes)
+                self._lib.bt_ring_destroy(self._ring)
+                self._ring = None
 
     def __enter__(self):
         return self

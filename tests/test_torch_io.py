@@ -9,7 +9,8 @@
     oldest ring through tests/test_native_ring.py's cases (byte-exact
     backpressure, newest-kept drop mode, concurrent conservation,
     LiveSource overrun accounting, an idle source that does not spin,
-    the int4 wire); load() is None without a toolchain (the build
+    the int4 wire, a LiveSource closed while the ingest's source thread
+    waits in it); load() is None without a toolchain (the build
     itself is held in tests/test_torch_consts.py);
   * io/ingest.py's live half: live_chunks and PipelinedIngest.run over
     tests/test_ingest.py's FakeLiveSource chunks give the same clock
@@ -303,6 +304,42 @@ def test_live_source_i4_wire(lib):
     rec = ingest.wire_decode_np(np.concatenate(got), "i4")
     want = ingest.wire_decode_np(packed[: rec.shape[1]], "i4")
     assert np.array_equal(rec[:, : want.shape[1]], want)
+
+
+def test_live_ingest_closed_while_its_source_waits(lib):
+    """btrx --live stopping mid-stream: the consumer closes the run after
+    two results while the ingest's source thread waits in the ring on a
+    pipe gone silent but still open.  LiveSource.close() from this
+    thread then destroys the ring only between two of that thread's
+    pops; the source thread ends, and the counts read after close are
+    the ring's."""
+    fe = FrontEnd(4e6, 2441e6, block_slots=8, device="cpu")
+    rfd, wfd = os.pipe()
+    src = sources.LiveSource(rfd, fe.step_samples, ring_mb=4, wire="i16")
+    os.close(rfd)
+    data = np.zeros((3 * fe.step_samples, 2), np.int16).tobytes()
+    w = threading.Thread(target=lambda: [
+        os.write(wfd, data[i:i + (1 << 16)])
+        for i in range(0, len(data), 1 << 16)])
+    w.start()
+    run = ingest.PipelinedIngest(fe, "i16").run(
+        ingest.live_chunks(src, fe.samples_per_slot))
+    assert [next(run).slot_base, next(run).slot_base] == [0, 8]
+    run.close()
+    w.join(timeout=5)
+    assert not w.is_alive()
+    feeds = [t for t in threading.enumerate() if t.name == "ingest-source"]
+    # the ring's pump thread reads the pipe until its writer closes it,
+    # and destroying the ring joins that thread
+    closer = threading.Timer(0.3, os.close, (wfd,))
+    closer.start()
+    src.close()
+    closer.join()
+    for t in feeds:
+        t.join(timeout=1)
+        assert not t.is_alive()
+    assert src.overruns == 0 and src.dropped_bytes == 0
+    assert list(src.iter_raw()) == []
 
 
 # ------------------------------------------------------- live ingest parity
