@@ -11,6 +11,16 @@ busy air capture.  For hits whose piconet is already known (clock + UAP
     -> payload FEC2/3 per 15-bit block, ragged lengths via masks
     -> per-byte CRC-16 prefix states, gathered at each row's length
 
+decode_known_rows runs these stages in one native pass over the rows
+(native/batch_decode.cc, built with g++ at first use by io/native.py and
+called through ctypes without the interpreter lock): the numpy form
+costs a fixed ~150 array ops per call, which set the sniffer's host time
+per block.  The numpy form stays as _decode_known_rows_numpy, the
+reference tests/test_torch_batch_native.py holds the native pass to,
+and runs only where the library cannot be built (no g++).  Counters
+batch_decode.rows and batch_decode.native_rows (utils/metrics.py) say
+how many rows each call took and how many the native pass decoded.
+
 Only the common ACL types run batched — NULL/POLL (0, 1), DM1/3/5 + DV
 (3, 10, 14, 8), DH1/3/5 + AUX1 (4, 11, 15, 9); FHS and the
 voice/extended-voice types (2, 5, 6, 7, 12, 13) defer to the per-packet
@@ -21,9 +31,14 @@ failure mode against the scalar path.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import numpy as np
 
+from ..io import native
 from ..utils.bits import air_to_host
+from ..utils.metrics import metrics
 from . import crc, fec, whitening
 
 __all__ = ["decode_known_rows"]
@@ -45,6 +60,95 @@ _NO_CRC_TYPES = (9,)                   # AUX1 carries no CRC
 def decode_known_rows(bits: np.ndarray, sizes: np.ndarray,
                       clocks: np.ndarray, uaps: np.ndarray) -> list:
     """Decode K symbol windows at known clocks/UAPs in batch.
+
+    bits: (K, L) uint8 air symbols (0 or 1) from the access-code start
+    (rows may carry junk beyond sizes[k]); sizes: (K,) valid symbols per
+    row; clocks: (K,) CLK1-6(+) values; uaps: (K,).
+
+    Returns a K-list: None where the row must take the per-packet path
+    (exotic type), else a dict with ClassicPacket.decode()'s effects:
+    ok, packet_type, packet_header, payload (None on failure),
+    payload_length, payload_header_length, payload_llid, payload_flow.
+    """
+    metrics.count("batch_decode.rows", len(bits))
+    fn = _load()
+    if fn is None:
+        return _decode_known_rows_numpy(bits, sizes, clocks, uaps)
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    K, L = bits.shape
+    cols = np.array((sizes, clocks, uaps), dtype=np.int64)
+    if L < 126 or cols.shape != (3, K):
+        raise ValueError(f"bits must be (K, >=126) and sizes, clocks and "
+                         f"uaps ({K},): got {bits.shape} and {cols.shape}")
+    stride = max(L, 236)             # the widest payload a row can take
+    meta = np.empty((K, _COLS), np.int32)
+    hv = np.empty((K, 98), np.uint8)           # header bits, voice bits
+    payload = np.empty((K, stride), np.uint8)
+    rc = fn(bits.ctypes.data, K, L, cols.ctypes.data, meta.ctypes.data,
+            hv.ctypes.data, payload.ctypes.data, stride)
+    if rc:
+        raise RuntimeError(f"bt_decode_known_rows returned {rc}")
+    metrics.count("batch_decode.native_rows", K)
+
+    out: list = [None] * K
+    headers = list(hv[:, :18])
+    for k, (st, t, length, hlen, llid, flow, crc_ok, n, has_voice) in \
+            enumerate(meta.tolist()):
+        if st == _DEFERRED:
+            continue
+        if st == _HEADER_FAILED:
+            out[k] = {"ok": False, "header_failed": True}
+            continue
+        o = out[k] = {"ok": False, "header_failed": False,
+                      "packet_type": t, "packet_header": headers[k],
+                      "payload": None, "payload_length": length,
+                      "payload_header_length": hlen, "payload_llid": llid,
+                      "payload_flow": flow}
+        if has_voice:
+            o["voice"] = hv[k, 18:]
+        if st == _OK:
+            # a copy (np.array's is cheaper than .copy()'s): a view would
+            # pin the whole (K, stride) payload matrix
+            o["payload"] = np.array(payload[k, :n])
+            o["ok"] = True
+            o["crc_ok"] = None if crc_ok < 0 else bool(crc_ok)
+        elif st == _OK_EMPTY:
+            o["ok"] = True
+            o["payload"] = np.zeros(0, dtype=np.uint8)
+        else:
+            o["fail"] = _FAIL[st]
+    return out
+
+
+# native/batch_decode.cc's row status codes and meta columns
+_DEFERRED, _HEADER_FAILED, _OK, _OK_EMPTY = 0, 1, 5, 6
+_FAIL = {2: "hdr", 3: "range", 4: "payload_fec"}
+_COLS = 9
+_SOURCE = Path(__file__).resolve().parent.parent / "native" / \
+    "batch_decode.cc"
+_FN = None
+_TRIED = False
+
+
+def _load():
+    """bt_decode_known_rows, built at first use; None without g++."""
+    global _FN, _TRIED
+    if _FN is None and not _TRIED:
+        _TRIED = True
+        so = native.build(_SOURCE)
+        if so is not None:
+            fn = ctypes.CDLL(str(so)).bt_decode_known_rows
+            vp, i64 = ctypes.c_void_p, ctypes.c_int64
+            fn.argtypes = [vp, i64, i64, vp, vp, vp, vp, i64]
+            fn.restype = ctypes.c_int
+            _FN = fn
+    return _FN
+
+
+def _decode_known_rows_numpy(bits: np.ndarray, sizes: np.ndarray,
+                              clocks: np.ndarray,
+                              uaps: np.ndarray) -> list:
+    """decode_known_rows in numpy array ops: the native pass's reference.
 
     bits: (K, L) uint8 air symbols from the access-code start (rows may
     carry junk beyond sizes[k]); sizes: (K,) valid symbols per row;

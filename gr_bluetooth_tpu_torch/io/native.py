@@ -6,7 +6,8 @@ package's _build/, named by a digest of the source and the flags (as
 utils/cuda_build.py names the kernels), so an edited source rebuilds
 and a stale library is never loaded.  load() returns None when the
 toolchain is missing, and callers then take their pure-Python paths:
-host I/O, not a device.
+host I/O, not a device.  build() does the same for the package's other
+host C++ (native/batch_decode.cc, core/batch_decode.py).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import os
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCE", "CXX_FLAGS", "library_path", "load"]
+__all__ = ["SOURCE", "CXX_FLAGS", "build", "library_path", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native" / "btio.cc"
@@ -26,21 +27,23 @@ _LIB = None
 _TRIED = False
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE) -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha1(SOURCE.read_bytes())
+    h = hashlib.sha1(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD / f"libbtio-{h.hexdigest()[:12]}.so"
+    return BUILD / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 
-def _build() -> Path | None:
-    so = library_path()
+def build(source: Path = SOURCE) -> Path | None:
+    """The library of a native/*.cc source, compiled if missing; None
+    where g++ is missing or fails."""
+    so = library_path(source)
     if so.exists():
         return so
     try:
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(source)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
         return so
@@ -54,7 +57,7 @@ def load():
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    so = _build()
+    so = build()
     if so is None:
         return None
     lib = ctypes.CDLL(str(so))
